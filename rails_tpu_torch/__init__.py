@@ -1,0 +1,52 @@
+"""rails_tpu_torch: the PyTorch / CUDA port of rails_tpu.
+
+Solves  A @ X @ M' + M @ X @ A' + B @ B' = 0  for X ~= V T V' low rank,
+with the algorithm of the JAX package ``rails_tpu`` and a hand-written
+CUDA kernel for every Pallas TPU kernel on the ported path.  Entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``; asking for
+``cuda`` without a card raises.
+
+This slice ports the generalized DIA solve: operators, the DIA format
+and its CUDA SpMM kernel, the dense projected Lyapunov solvers, and the
+solver.  It imports neither ``jax`` nor ``rails_tpu``.
+"""
+
+__version__ = "0.1.0"
+
+from rails_tpu_torch.linalg.dense_lyap import lyap, lyap_residual  # noqa: F401
+from rails_tpu_torch.operators import (  # noqa: F401
+    CallableOperator,
+    DenseOperator,
+    DiagonalOperator,
+    IdentityOperator,
+    LinearOperator,
+    LowRankOperator,
+    as_operator,
+    operator_norm2,
+)
+from rails_tpu_torch.core.options import (  # noqa: F401
+    InvalidOption,
+    InverseNotUsedWarning,
+    ProjectedSolverPerformanceWarning,
+    ProjectionMethodWarning,
+    SingularMassMatrixWarning,
+    SolverOptions,
+)
+from rails_tpu_torch.core.solver import (  # noqa: F401
+    LyapunovSolver,
+    SolveInfo,
+    solve,
+)
+from rails_tpu_torch.sparse.formats import (  # noqa: F401
+    DiaMatrix,
+    SparseOperator,
+    sparse_from_csr,
+    sparse_from_dense,
+    sparse_from_scipy,
+)
+from rails_tpu_torch.timer import (  # noqa: F401
+    disable_profiling,
+    enable_profiling,
+    save_profiles,
+    timer,
+)

@@ -1,0 +1,952 @@
+"""The RAILS iteration in PyTorch - the counterpart of the JAX package's
+``core/solver.py``, with the same algorithm and the same static-shape
+masked state:
+
+- The search space V lives in an (m, Kb) buffer with an active column
+  count ``k``; columns >= k are exactly zero.  AV, MV and BV follow V, and
+  the projected matrices VAV/VBV/VMV are (Kb, Kb) buffers that are exactly
+  zero outside the active block.  Kb grows on a capacity ladder
+  (``_grow_state``) as k approaches it.
+- The projected dense solve pads the inactive diagonal with a shift that
+  dominates the active spectral radius, so the padded equation is always
+  solvable and T == 0 outside the active block.
+- One iteration: the incremental Gram update (one apply of A to the
+  newest block), the projected dense solve, the residual Lanczos, then a
+  restart or an orthonormal append.
+
+PyTorch runs eagerly, so the JAX package's ``lax.cond``/``scan`` become
+Python control flow and its host loop is the only loop: the control
+scalars (k, the iteration counters, the convergence flags) are Python
+values, and each iteration reads the residual estimate back once.
+``compiled=True`` (the JAX package's single ``while_loop``; CUDA graphs
+here) and ``precision='compensated'`` are not ported yet and raise.
+
+Random numbers: the solver draws twice per kind of use - the initial
+space (``"init_uniform"``, U[0, 1) mapped to U[-1, 1)) and each Lanczos
+start (``"lanczos_normal"``).  ``LyapunovSolver(draws=...)`` replaces the
+default ``torch.Generator`` (seeded with ``options.seed``) with any
+``draws(kind, shape, dtype, device) -> Tensor``; the parity tests pass
+the numbers ``jax.random`` gave the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from rails_tpu_torch.core.options import (
+    InvalidOption, InverseNotUsedWarning, ProjectionMethodWarning,
+    SingularMassMatrixWarning, SolverOptions)
+from rails_tpu_torch.linalg import dense_lyap
+from rails_tpu_torch.operators import (
+    LinearOperator, as_operator, operator_norm2)
+from rails_tpu_torch.timer import timer
+from rails_tpu_torch.utils.device import as_tensor, resolve_device
+from rails_tpu_torch.utils.dtypes import full_precision
+
+__all__ = ["LyapunovSolver", "SolveInfo", "solve"]
+
+Draws = Callable[[str, Tuple[int, ...], torch.dtype, torch.device],
+                 torch.Tensor]
+
+
+def _round_up(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def _dus(buf: torch.Tensor, blk: torch.Tensor, r: int, c: int) -> None:
+    """In-place ``lax.dynamic_update_slice``: write ``blk`` at (r, c),
+    with the start clamped so the block fits, as XLA clamps it."""
+    r = max(0, min(r, buf.shape[0] - blk.shape[0]))
+    c = max(0, min(c, buf.shape[1] - blk.shape[1]))
+    buf[r:r + blk.shape[0], c:c + blk.shape[1]] = blk
+
+
+def _eigh_sign_fixed(h: torch.Tensor):
+    """``torch.linalg.eigh`` with each eigenvector's sign fixed so that
+    its entry of largest magnitude (the first, on a tie) is positive.
+    LAPACK leaves the sign open and the LAPACKs differ (MKL, cuSOLVER,
+    the one jaxlib uses); the residual Lanczos's warm start depends on
+    it, so the port fixes it to give one answer on every device."""
+    w, v = torch.linalg.eigh(h)
+    idx = torch.argmax(torch.abs(v), dim=0)
+    sgn = torch.sign(v.gather(0, idx[None, :]))
+    return w, v * torch.where(sgn == 0, torch.ones_like(sgn), sgn)
+
+
+@dataclasses.dataclass
+class SolverState:
+    """All per-iteration data.  Tensors live on the solver's device; the
+    control scalars are Python values."""
+
+    V: torch.Tensor            # (m, Kb) search space, cols >= k are zero
+    AV: torch.Tensor           # (m, Kb) A @ V
+    BV: torch.Tensor           # (p, Kb) B' @ V
+    MV: Optional[torch.Tensor]  # (m, Kb) M @ V (None when M is None)
+    VAV: torch.Tensor          # (Kb, Kb) V' A V
+    VBV: torch.Tensor          # (Kb, Kb) V' B B' V
+    VMV: Optional[torch.Tensor]  # (Kb, Kb) V' M V
+    T: torch.Tensor            # (Kb, Kb) projected solution
+    q_warm: torch.Tensor       # (m, 1) warm start for the residual Lanczos
+    k: int                     # active columns
+    w_start: int = 0           # offset of newest block
+    n_new: int = 0             # valid columns in newest block
+    res: float = float("inf")  # last relative residual estimate
+    iter: int = 0
+    iter_since_restart: int = 0
+    converged: bool = False    # tolerance reached at least once
+    reduced: bool = False      # post-convergence restart done
+    done: bool = False
+    status: int = 1            # 0 converged / -1 not / -2 blowup / 1 running
+    resvec: Optional[np.ndarray] = None  # (maxit,) residual history
+    recvec: Optional[np.ndarray] = None  # (maxit,) bool: entry valid
+    mvps: int = 0              # logical A-column applications
+
+
+@dataclasses.dataclass
+class SolveInfo:
+    res: float
+    iter: int
+    status: int
+    resvec: np.ndarray
+    timevec: np.ndarray
+    mvps: int
+    restart_data: Optional[dict] = None
+
+    @property
+    def converged(self) -> bool:
+        return self.status == 0
+
+
+class LyapunovSolver:
+    """Solves A X M' + M X A' + B B' = 0, X ~= V T V'.
+
+    Mirrors RAILS::Solver (src/LyapunovSolverDecl.hpp:9-51) and MATLAB
+    RAILSsolver; see SolverOptions for the knob set.
+
+    ``device``: where the solve runs (default ``cuda``; raises without a
+    card).  Operators and B are moved there and cast to the solve dtype:
+    ``options.dtype``, else B's dtype when B is a floating tensor or
+    array, else ``torch.get_default_dtype()``.
+    ``b_sign``: optional symmetric (p, p) S making the right-hand side
+    B S B' instead of B B'.
+    ``draws``: optional random-number hook, see the module docstring.
+    """
+
+    def __init__(self, a, b, m=None, options: Optional[SolverOptions] = None,
+                 *, device=None, draws: Optional[Draws] = None,
+                 b_sign=None, **opt_kwargs):
+        self.options = options or SolverOptions(**opt_kwargs)
+        opt = self.options
+        self.device = resolve_device(device)
+        self.draws = draws
+        self.dtype = self._resolve_dtype(b)
+        if self.dtype.is_complex:
+            raise InvalidOption("the port solves real equations only")
+        for name, op in (("A", a), ("M", m), ("B", b)):
+            pdt = getattr(op, "payload_dtype", None) if isinstance(
+                op, LinearOperator) else None
+            if pdt is not None and pdt.is_complex:
+                raise InvalidOption(
+                    f"operator {name} has complex payload dtype {pdt} but "
+                    f"the solve dtype {self.dtype} is real; rebuild the "
+                    f"operator at a real dtype")
+        self.A = self._prep(as_operator(a, device=self.device,
+                                         dtype=self.dtype))
+        self.M = None if m is None else self._prep(
+            as_operator(m, device=self.device, dtype=self.dtype))
+        self.b_sign = None if b_sign is None else as_tensor(
+            b_sign, self.device, self.dtype)
+        if self.b_sign is not None:
+            s = self.b_sign
+            if s.ndim != 2 or s.shape[0] != s.shape[1]:
+                raise InvalidOption("b_sign must be a square (p, p) matrix")
+        if isinstance(b, LinearOperator):
+            self.B = self._prep(b)
+            self._b_is_operator = True
+            self._b_array = None
+        else:
+            self.B = None
+            self._b_is_operator = False
+            self._b_array = as_tensor(b, self.device, self.dtype)
+            if self._b_array.ndim == 1:
+                self._b_array = self._b_array[:, None]
+        if not self._b_is_operator:
+            p = self._b_array.shape[1]
+            if opt.expand is None:
+                opt.expand = min(3, p)  # MATLAB default (RAILSsolver.m:127)
+            elif opt.expand > p:
+                raise InvalidOption(
+                    "opts.expand is larger than the column dimension of B")
+        elif opt.expand is None:
+            opt.expand = 3
+        if opt.restart_from_solution and opt.space is None \
+                and opt.restart_data is None:
+            raise InvalidOption(
+                "restart_from_solution requires a previous solution basis "
+                "in opts.space")
+        if opt.inv_a is not None and opt.projection_major == 1 \
+                and opt.projection_minor == 0:
+            warnings.warn(
+                "An inverse application method is provided, but the current "
+                "projection method does not make use of this",
+                InverseNotUsedWarning)  # RAILSsolver.m:280-284
+        self._check_singular_m()
+
+    def _resolve_dtype(self, b) -> torch.dtype:
+        if self.options.dtype is not None:
+            dt = self.options.dtype
+            if not isinstance(dt, torch.dtype):
+                dt = getattr(torch, np.dtype(dt).name)
+            return dt
+        if isinstance(b, torch.Tensor) and b.is_floating_point():
+            return b.dtype
+        if isinstance(b, np.ndarray) and b.dtype.kind == "f":
+            return getattr(torch, b.dtype.name)
+        return torch.get_default_dtype()
+
+    def _prep(self, op: LinearOperator) -> LinearOperator:
+        return op.to(self.device).astype(self.dtype)
+
+    def _check_singular_m(self) -> None:
+        """Warn when the mass matrix looks singular - the reference's
+        condest(M) > 1e12 check (RAILSsolver.m:272-277), for a diagonal or
+        DIA M (exact on the diagonal, a host sparse LU on DIA)."""
+        M = self.M
+        if M is None:
+            return
+        d = getattr(M, "d", None)
+        if d is not None:  # diagonal M: exact and cheap
+            dd = np.abs(d.detach().cpu().numpy())
+            if dd.size and dd.min() < 1e-12 * max(dd.max(), 1.0):
+                warnings.warn(
+                    "Your M matrix appears to be singular. It is advised "
+                    "to use the provided schur_reduce method.",
+                    SingularMassMatrixWarning)  # RAILSsolver.m:273-277
+            return
+        from rails_tpu_torch.sparse.formats import (
+            SparseOperator, payload_to_scipy)
+
+        if not isinstance(M, SparseOperator) or M.shape[0] > 200_000:
+            if self.options.verbosity > 0:
+                print("rails_tpu_torch: skipping singular-M condest check; "
+                      "if M may be singular, use schur_reduce")
+            return
+        import scipy.sparse.linalg as spla
+
+        mat = payload_to_scipy(M.fwd).tocsc()
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # splu singular warnings
+                lu = spla.splu(mat)
+                inv1 = spla.onenormest(spla.LinearOperator(
+                    mat.shape, matvec=lu.solve,
+                    rmatvec=lambda x: lu.solve(x, trans="T")))
+            cond = float(inv1) * float(spla.norm(mat, 1))
+        except (RuntimeError, ValueError):
+            cond = np.inf  # factorization failed -> numerically singular
+        if not np.isfinite(cond) or cond > 1e12:
+            warnings.warn(
+                "Your M matrix appears to be singular. It is advised "
+                "to use the provided schur_reduce method.",
+                SingularMassMatrixWarning)
+
+    def _resolve_lyap_method(self) -> Tuple[str, bool]:
+        """Pick the projected dense solver from operator tags."""
+        opt = self.options
+        if opt.projected_solver != "auto":
+            spd = self.M is not None and self.M.is_spd
+            return opt.projected_solver, spd
+        mortho = opt.ortho == "M"
+        if self.A.is_symmetric and (self.M is None or self.M.is_spd or mortho):
+            return "eigh", (self.M is not None and self.M.is_spd and not mortho)
+        if self.A.is_hurwitz:
+            return "sign", False
+        return "schur", False
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+    def solve(self, compiled: bool = False, progress=None):
+        """Run the iteration.  Returns (V, T, SolveInfo).
+
+        ``progress``: optional callable ``(iter, wall_s, res)`` called
+        after every iteration."""
+        if compiled:
+            raise NotImplementedError(
+                "compiled=True (one captured graph for the whole loop) is "
+                "not ported yet: ROADMAP, CUDA graphs")
+        opt = self.options
+        if opt.precision == "compensated":
+            raise NotImplementedError(
+                "precision='compensated' is not ported yet: ROADMAP, the "
+                "refinement slice (utils/compensated.py)")
+        m = self.A.shape[0]
+        with full_precision():
+            with timer("Solver", "init"):
+                st, ctx = self._init_state(m)
+            t0 = time.perf_counter()
+            timevec = []
+            while True:
+                # grow the capacity bucket before the step would clip
+                # (reference "Resize spaces", LyapunovSolver.hpp:309-332)
+                if ctx.kb < ctx.cap_kb and \
+                        st.k + 2 * ctx.s_slot > ctx.kb - ctx.s_slot:
+                    with timer("Solver", "resize"):
+                        self._grow_state(
+                            st, min(ctx.cap_kb, _round_up(2 * ctx.kb, 8)))
+                        ctx.set_kb(st.VAV.shape[0], m)
+                with timer("Solver", "iterate"):
+                    self._iterate(st, ctx)
+                timevec.append(time.perf_counter() - t0)
+                if opt.verbosity > 0:
+                    print(f"Iteration {st.iter}. "
+                          f"Estimate Lanczos, relative: {st.res:e}, "
+                          f"space size: {st.k}")
+                if progress is not None:
+                    progress(st.iter, timevec[-1], st.res)
+                if st.done:
+                    break
+
+        k = st.k
+        v = st.V[:, :k]
+        t = st.T[:k, :k]
+        n_it = st.iter
+        recvec = st.recvec[:n_it]
+        info = SolveInfo(
+            res=float(st.res), iter=n_it, status=st.status,
+            resvec=st.resvec[:n_it][recvec],
+            timevec=np.asarray(timevec, dtype=float)[:n_it][recvec],
+            mvps=st.mvps,
+            restart_data={"V": v, "AV": st.AV[:, :k],
+                          "VAV": st.VAV[:k, :k]})
+        if opt.verbosity > 0:
+            outcome = "converged" if info.status == 0 else "did not converge"
+            print(f"The Lyapunov solver {outcome} in {info.iter} iterations "
+                  f"with a final relative residual of {info.res:e}. "
+                  f"The size of the space used for the solution is {k}")
+        if info.status == -1 and opt.projection_major == 1 \
+                and opt.projection_minor == 0:
+            warnings.warn(
+                "Convergence has not been achieved with "
+                "projection_method = 1. It is advised to set "
+                "projection_method to a different value. For instance "
+                "projection_method = 1.2.",
+                ProjectionMethodWarning)  # RAILSsolver.m:438-452
+        return v, t, info
+
+    # ------------------------------------------------------------------
+    # helpers
+    # ------------------------------------------------------------------
+    def _draw(self, ctx, kind: str, shape) -> torch.Tensor:
+        if self.draws is not None:
+            x = self.draws(kind, tuple(shape), self.dtype, self.device)
+            x = as_tensor(x, self.device, self.dtype)
+            if tuple(x.shape) != tuple(shape):
+                raise ValueError(f"draws({kind!r}) gave shape "
+                                 f"{tuple(x.shape)}, expected {shape}")
+            return x
+        if kind == "init_uniform":
+            return torch.rand(shape, generator=ctx.gen, dtype=self.dtype,
+                              device=self.device)
+        return torch.randn(shape, generator=ctx.gen, dtype=self.dtype,
+                           device=self.device)
+
+    def _p(self) -> int:
+        return self.B.shape[1] if self._b_is_operator \
+            else self._b_array.shape[1]
+
+    def _b_matmat(self, x):
+        if self._b_is_operator:
+            return self.B.matmat(x)
+        return self._b_array @ x
+
+    def _b_rmatmat(self, x):
+        if self._b_is_operator:
+            return self.B.rmatmat(x)
+        return self._b_array.T @ x
+
+    def _b_norm2sq(self) -> torch.Tensor:
+        """||B||_2^2 = ||B'B||_2, the residual normalization r0 (MATLAB
+        r0 = norm(full(B'*B), 2), RAILSsolver.m:335).  With a signed
+        factor this is ||(B'B)^1/2 S (B'B)^1/2||_2.  Recomputed at every
+        solve from the current B."""
+        if self.b_sign is not None:
+            if self._b_is_operator:
+                p = self.B.shape[1]
+                bb = self.B.rmatmat(self.B.matmat(torch.eye(
+                    p, dtype=self.dtype, device=self.device)))
+            else:
+                bb = self._b_array.T @ self._b_array
+            lam, u = torch.linalg.eigh(0.5 * (bb + bb.T))
+            half = (u * torch.sqrt(torch.clamp(lam, min=0.0))[None, :]) @ u.T
+            core = half @ self.b_sign @ half
+            return torch.max(torch.abs(torch.linalg.eigvalsh(
+                0.5 * (core + core.T))))
+        if self._b_is_operator:
+            return operator_norm2(self.B, dtype=self.dtype,
+                                  device=self.device) ** 2
+        bb = self._b_array.T @ self._b_array
+        return torch.linalg.eigvalsh(bb)[-1]
+
+    def _init_space(self, m, ctx) -> torch.Tensor:
+        """Initial V_0 per opts: space | restart_data | random, with
+        projection-method enrichment (RAILSsolver.m:288-308)."""
+        opt = self.options
+        dtype, dev = self.dtype, self.device
+        v0 = None
+        if opt.restart_data is not None:
+            rd = opt.restart_data
+            for field in ("V", "AV", "VAV"):
+                if field not in rd:
+                    raise InvalidOption(
+                        "restart_data does not contain valid restart data")
+            v0 = as_tensor(rd["V"], dev, dtype)
+        elif opt.space is not None:
+            v0 = as_tensor(opt.space, dev, dtype)
+            if v0.ndim == 1:
+                v0 = v0[:, None]
+            if v0.shape[0] != m:
+                raise InvalidOption(
+                    "opts.space should have the same row dimension as A")
+        if v0 is None:
+            v0 = (self._draw(ctx, "init_uniform", (m, 1)) - 0.5) * 2.0
+
+        inv_a = opt.inv_a
+        pm_major, pm_minor = opt.projection_major, opt.projection_minor
+        if inv_a is not None and pm_minor == 1:
+            w = inv_a(v0)
+        elif inv_a is not None and pm_minor == 2:
+            v0 = self._b_matmat(torch.eye(self._p(), dtype=dtype,
+                                          device=dev)) \
+                if self._b_is_operator else self._b_array
+            w = inv_a(v0)
+        else:
+            w = v0
+        if inv_a is not None and pm_major == 2 and pm_minor not in (0, 3):
+            v0 = torch.cat([v0, w], dim=1)
+        elif inv_a is not None and pm_major == 1 and pm_minor in (1, 2):
+            v0 = w
+        return v0
+
+    def _init_state(self, m):
+        opt = self.options
+        dtype, dev = self.dtype, self.device
+        ctx = _Context()
+        ctx.gen = None
+        if self.draws is None:
+            ctx.gen = torch.Generator(dev).manual_seed(int(opt.seed))
+        v0 = self._init_space(m, ctx)
+        mortho = opt.ortho == "M"
+        mop = self.M if mortho else None
+        nullspace = None
+        if opt.nullspace is not None:
+            nullspace = _host_orthonormalize(
+                as_tensor(opt.nullspace, dev, dtype), None, mop,
+                opt.ortho_drop_tol)
+        # restart_data's V is already orthonormal and must stay untouched
+        # or the Gram data would go inconsistent; restart_from_solution
+        # re-enters from a previous solve's V (Gram data recomputed)
+        skip_ortho = opt.space_is_orthogonalized or (
+            opt.restart_from_solution and opt.space is not None)
+        if opt.restart_data is None and not skip_ortho:
+            v0 = _host_orthonormalize(v0, nullspace, mop, opt.ortho_drop_tol)
+        k0 = int(v0.shape[1])
+        p = self._p()
+
+        s_top = min(opt.expand, p) if not self._b_is_operator else opt.expand
+        s_slot = s_top * (2 if opt.expansion_doubles else 1)
+        if opt.restart_size > 0:
+            cap = min(m, opt.restart_size + 2 * s_slot)
+        else:
+            cap = min(m, k0 + opt.maxit * s_slot)
+        if opt.max_space is not None:
+            cap = min(cap, opt.max_space)
+        cap = max(cap, k0 + s_slot)
+        cap_kb = min(_round_up(cap, 8), m + s_slot) + s_slot
+        kb = min(cap_kb, _round_up(max(k0 + s_slot, 17 * s_slot, 48), 8)
+                 + s_slot)
+
+        has_m = self.M is not None
+
+        def zeros(r, c):
+            return torch.zeros((r, c), dtype=dtype, device=dev)
+
+        V = zeros(m, kb)
+        V[:, :k0] = v0
+        av0 = self.A.matmat(v0)
+        AV = zeros(m, kb)
+        AV[:, :k0] = av0
+        bv0 = self._b_rmatmat(v0)
+        BV = zeros(p, kb)
+        BV[:, :k0] = bv0
+        VAV = zeros(kb, kb)
+        VAV[:k0, :k0] = v0.T @ av0
+        VBV = zeros(kb, kb)
+        VBV[:k0, :k0] = bv0.T @ bv0 if self.b_sign is None \
+            else bv0.T @ self.b_sign @ bv0
+        MV = VMV = None
+        if has_m:
+            mv0 = self.M.matmat(v0)
+            MV = zeros(m, kb)
+            MV[:, :k0] = mv0
+            if not mortho:
+                VMV = zeros(kb, kb)
+                VMV[:k0, :k0] = v0.T @ mv0
+        if opt.restart_data is not None:
+            rd = opt.restart_data
+            AV[:, :k0] = as_tensor(rd["AV"], dev, dtype)
+            VAV[:k0, :k0] = as_tensor(rd["VAV"], dev, dtype)
+
+        st = SolverState(
+            V=V, AV=AV, BV=BV, MV=MV, VAV=VAV, VBV=VBV, VMV=VMV,
+            T=zeros(kb, kb), q_warm=zeros(m, 1), k=k0, mvps=k0,
+            resvec=np.zeros(opt.maxit, dtype=float),
+            recvec=np.zeros(opt.maxit, dtype=bool))
+        lyap_method, e_spd = self._resolve_lyap_method()
+        ctx.update(
+            p=p, cap_kb=cap_kb, s_top=s_top, s_slot=s_slot,
+            L=max(opt.effective_lanczos, s_top + 1), has_m=has_m,
+            mortho=mortho, lyap_method=lyap_method, e_spd=e_spd,
+            nullspace=nullspace, r0sq=self._b_norm2sq().to(dtype))
+        ctx.set_kb(kb, m)
+        return st, ctx
+
+    @staticmethod
+    def _grow_state(st: SolverState, kb_new: int) -> None:
+        """Zero-pad every k-indexed buffer to a larger bucket size."""
+        grow = kb_new - st.VAV.shape[0]
+        if grow <= 0:
+            return
+
+        def pad_cols(x):
+            return None if x is None else torch.nn.functional.pad(
+                x, (0, grow))
+
+        def pad_sq(x):
+            return None if x is None else torch.nn.functional.pad(
+                x, (0, grow, 0, grow))
+
+        st.V, st.AV, st.BV, st.MV = (pad_cols(st.V), pad_cols(st.AV),
+                                     pad_cols(st.BV), pad_cols(st.MV))
+        st.VAV, st.VBV, st.VMV, st.T = (pad_sq(st.VAV), pad_sq(st.VBV),
+                                        pad_sq(st.VMV), pad_sq(st.T))
+
+    # ------------------------------------------------------------------
+    # one iteration
+    # ------------------------------------------------------------------
+    def _iterate(self, st: SolverState, ctx) -> None:
+        opt = self.options
+        if st.n_new > 0:
+            with timer("Solver", "gram_update"):
+                self._gram_update(st, ctx)
+        with timer("Solver", "project_solve"):
+            self._project_solve(st, ctx)
+        with timer("Solver", "lanczos"):
+            res_abs, cands = self._lanczos(st, ctx)
+            rel_t = res_abs / ctx.r0sq
+            rel, t_finite = torch.stack(
+                [rel_t, torch.isfinite(st.T).all().to(rel_t.dtype)]).tolist()
+        record = st.iter_since_restart > 0 or st.iter == 0
+        st.resvec[st.iter] = rel
+        st.recvec[st.iter] = record
+        isr = st.iter_since_restart + 1
+        it1 = st.iter + 1
+
+        conv_now = rel < opt.tol
+        # abort on numerical blowup: a singular projected equation gives a
+        # non-finite T (the reference continues with garbage,
+        # LyapunovSolver.hpp:361-362; status -2 here)
+        blowup = (not np.isfinite(rel)) or t_finite == 0.0
+        conv_now = conv_now and not blowup
+        # C++ exit structure (LyapunovSolver.hpp:224-242): when the
+        # tolerance is first reached and space minimization is on, fall
+        # through to the restart instead of breaking
+        will_minimize = conv_now and not st.converged \
+            and opt.restart_upon_convergence
+        space_full = st.k >= ctx.k_limit
+        done = (conv_now and not will_minimize) or it1 >= opt.maxit \
+            or (space_full and not will_minimize) or blowup
+        status = -2 if blowup else (0 if conv_now else -1)
+        converged = st.converged or conv_now
+        do_restart = (not done) and (
+            (st.iter == 0 and opt.restart_upon_start)
+            or (opt.restart_iterations > 0
+                and isr >= opt.restart_iterations)
+            or (opt.restart_size > 0 and st.k >= opt.restart_size)
+            or (conv_now and not st.reduced
+                and opt.restart_upon_convergence))
+        if do_restart:
+            st.reduced = converged
+        st.res, st.converged = rel, converged
+        st.iter, st.iter_since_restart = it1, isr
+        st.done, st.status = done, (status if done else 1)
+        if do_restart:
+            with timer("Solver", "restart"):
+                self._restart(st, ctx)
+        elif not done:
+            with timer("Solver", "expand"):
+                self._expand(st, ctx, cands)
+
+    # -------------------- Gram update --------------------
+    def _tdot(self, x, w):
+        """x.T @ w, reducing over the long axis m."""
+        return x.T @ w
+
+    def _sgn(self, x):
+        """Insert the signed middle factor: B S B' instead of B B'."""
+        return x if self.b_sign is None else self.b_sign @ x
+
+    def _gram_update(self, st: SolverState, ctx) -> None:
+        ws, s_slot = st.w_start, ctx.s_slot
+        tdot = self._tdot
+        W = st.V[:, ws:ws + s_slot].contiguous()
+        AW = self.A.matmat(W)
+        _dus(st.VAV, tdot(W, st.AV), ws, 0)
+        _dus(st.AV, AW, 0, ws)
+        _dus(st.VAV, tdot(st.V, AW), 0, ws)
+
+        BW = self._b_rmatmat(W)
+        WBV = BW.T @ self._sgn(st.BV)
+        _dus(st.VBV, WBV, ws, 0)
+        _dus(st.VBV, WBV.T, 0, ws)
+        _dus(st.VBV, BW.T @ self._sgn(BW), ws, ws)
+        _dus(st.BV, BW, 0, ws)
+
+        if ctx.has_m:
+            MW = self.M.matmat(W)
+            _dus(st.MV, MW, 0, ws)
+            if not ctx.mortho:
+                _dus(st.VMV, tdot(W, st.MV), ws, 0)
+                _dus(st.VMV, tdot(st.V, MW), 0, ws)
+        st.mvps += st.n_new
+
+    # -------------------- projected dense solve --------------------
+    def _project_solve(self, st: SolverState, ctx) -> None:
+        tri = torch.linalg.solve_triangular
+        active = (ctx.col_ids < st.k).to(self.dtype)
+        inactive_diag = torch.diag(1.0 - active)
+        if ctx.has_m and not ctx.mortho:
+            vmv_i = st.VMV + inactive_diag  # identity padding
+            if ctx.e_spd and ctx.lyap_method == "eigh":
+                l = torch.linalg.cholesky(0.5 * (vmv_i + vmv_i.T))
+                at = tri(l, st.VAV, upper=False)
+                at = tri(l, at.T, upper=False).T
+                ct = tri(l, st.VBV, upper=False)
+                ct = tri(l, ct.T, upper=False).T
+
+                def back(y):
+                    x = tri(l.T, y, upper=True)
+                    return tri(l.T, x.T, upper=True).T
+            else:
+                at = torch.linalg.solve(vmv_i, st.VAV)
+                ct = torch.linalg.solve(
+                    vmv_i, torch.linalg.solve(vmv_i, st.VBV).T).T
+
+                def back(y):
+                    return y
+        else:
+            at, ct = st.VAV, st.VBV
+
+            def back(y):
+                return y
+        # dominate the active spectral radius so the padding never
+        # collides with active eigenvalues
+        a_pad = -(torch.max(torch.sum(torch.abs(at), dim=1)) + 1.0)
+        at = at + a_pad * inactive_diag
+        ct = 0.5 * (ct + ct.T)
+        y = dense_lyap.lyap(at, ct, method=ctx.lyap_method)
+        t_new = back(y)
+        # enforce exact masking of the inactive block
+        act = ctx.col_ids < st.k
+        t_new = torch.where(act[:, None] & act[None, :], t_new,
+                            torch.zeros((), dtype=self.dtype,
+                                        device=self.device))
+        st.T = 0.5 * (t_new + t_new.T)
+
+    # -------------------- residual Lanczos --------------------
+    def _resid_apply(self, st: SolverState, ctx, q):
+        """R q = B(B'q) + AV(T(MV'q)) + MV(T(AV'q)) - matrix-free
+        application of the residual (C++ resid_lanczos inner ops,
+        src/LyapunovSolver.hpp:388-403)."""
+        mv = st.MV if ctx.has_m else st.V
+        y = self._b_matmat(self._sgn(self._b_rmatmat(q)))
+        y = y + st.AV @ (st.T @ self._tdot(mv, q))
+        y = y + mv @ (st.T @ self._tdot(st.AV, q))
+        return y
+
+    def _lanczos(self, st: SolverState, ctx):
+        opt = self.options
+        m, L, dtype, dev = st.V.shape[0], ctx.L, self.dtype, self.device
+        g = self._draw(ctx, "lanczos_normal", (m, 1))
+        g = g / torch.linalg.norm(g)
+        # warm start: last iteration's top candidate plus a random
+        # component guaranteeing overlap with any newly dominant direction
+        wnorm = torch.linalg.norm(st.q_warm)
+        one = torch.ones((), dtype=dtype, device=dev)
+        q0 = torch.where(wnorm > 0, st.q_warm / torch.where(
+            wnorm > 0, wnorm, one) + 0.1 * g, g)
+        q = q0 / torch.linalg.norm(q0)
+        qbuf = torch.zeros((m, L), dtype=dtype, device=dev)
+        eps = torch.finfo(dtype).eps
+        # lanczos_tolerance: stop the recurrence once beta < tol * scale
+        # (remaining steps are masked); None -> breakdown guard only
+        breakdown = max(eps * 100.0, float(opt.lanczos_tolerance or 0.0))
+        zero = torch.zeros((), dtype=dtype, device=dev)
+        q_prev = torch.zeros_like(q)
+        beta_prev, scale = zero, zero
+        valid = torch.ones((), dtype=torch.bool, device=dev)
+        alphas, betas = [], []
+        for j in range(L):
+            qbuf[:, j] = q[:, 0]
+            y = self._resid_apply(st, ctx, q)
+            alpha = (y.T @ q)[0, 0]
+            y = y - alpha * q - beta_prev * q_prev
+            if opt.lanczos_reorth:
+                # full reorthogonalization (2 m*L GEMMs per step)
+                y = y - qbuf @ self._tdot(qbuf, y)
+            beta = torch.sqrt(torch.clamp((y.T @ y)[0, 0], min=0.0))
+            scale = torch.maximum(scale, torch.abs(alpha) + beta)
+            valid_next = valid & (beta > breakdown * scale)
+            alphas.append(torch.where(valid, alpha, zero))
+            beta_out = torch.where(valid_next, beta, zero)
+            betas.append(beta_out)
+            q_next = torch.where(valid_next, y / torch.where(
+                beta > 0, beta, one), zero)
+            q, q_prev, beta_prev, valid = q_next, q, beta_out, valid_next
+        alphas, betas = torch.stack(alphas), torch.stack(betas)
+        h = torch.diag(alphas) + torch.diag(betas[:-1], 1) \
+            + torch.diag(betas[:-1], -1)
+        evals, evecs = _eigh_sign_fixed(h)
+        order = torch.argsort(-torch.abs(evals), stable=True)
+        evals = evals[order]
+        evecs = evecs[:, order]
+        cands = qbuf @ evecs[:, :ctx.s_top]
+        st.q_warm = qbuf @ evecs[:, :1]
+        return torch.abs(evals[0]), cands
+
+    # -------------------- restart --------------------
+    def _restart(self, st: SolverState, ctx) -> None:
+        """Truncate the space to the dominant eigenvectors of T (C++
+        compute_restart_vectors, LyapunovSolver.hpp:449-482; MATLAB
+        RAILSsolver.m:455-513)."""
+        opt = self.options
+        rtol = opt.effective_restart_tolerance
+        evals, evecs = torch.linalg.eigh(st.T)
+        aevals = torch.abs(evals)
+        order = torch.argsort(-aevals, stable=True)
+        aevals = aevals[order]
+        x = evecs[:, order]
+        active = ctx.col_ids < st.k
+        if opt.restart_tolerance_mode == "absolute":
+            keep = (aevals > rtol) & active  # C++: |lambda| > rtol
+        else:
+            # MATLAB semantics: |lambda| / max > rtol
+            emax = torch.clamp(aevals[0], min=torch.finfo(self.dtype).tiny)
+            keep = (aevals / emax > rtol) & active
+        if opt.reduced_size > 0:
+            keep = keep & (ctx.col_ids < opt.reduced_size)
+        # A float32 solve rotates in float64 and rounds once.  The
+        # rotations are where the stored AV and MV drift from A V and M V
+        # (each restart adds a float32 GEMM's rounding), and the drift is
+        # what separates the true residual from the Lanczos estimate: on
+        # an H100 the n=4096 phase_solve problem (tol 1e-4) ended at an
+        # f64 true residual of 2.74e-4 with float32 rotations and 9.76e-5
+        # with float64 ones (chip_smoke.py).
+        # The JAX package rotates in float32 (its TPU has no fast
+        # float64); at float64 the two are the same algorithm.
+        wide = torch.float64 if self.dtype == torch.float32 else self.dtype
+        x = (x * keep[None, :].to(self.dtype)).to(wide)
+
+        def rot(buf):
+            return (buf.to(wide) @ x).to(self.dtype)
+
+        def congruence(g):
+            return (x.T @ g.to(wide) @ x).to(self.dtype)
+
+        st.V, st.AV, st.BV = rot(st.V), rot(st.AV), rot(st.BV)
+        st.VAV = congruence(st.VAV)
+        vbv = congruence(st.VBV)
+        st.VBV = 0.5 * (vbv + vbv.T)
+        if ctx.has_m:
+            st.MV = rot(st.MV)
+            if not ctx.mortho:
+                st.VMV = congruence(st.VMV)
+        st.k = int(keep.sum())
+        st.w_start, st.n_new, st.iter_since_restart = 0, 0, 0
+
+    # -------------------- expansion --------------------
+    def _inner_prep(self, ctx, w):
+        return self.M.matmat(w) if ctx.mortho else w
+
+    def _col_norm(self, ctx, x):
+        if ctx.mortho:
+            return torch.sqrt(torch.clamp(
+                torch.sum(x * self._inner_prep(ctx, x), dim=0), min=0.0))
+        return torch.linalg.norm(x, dim=0)
+
+    def _finish_append(self, st: SolverState, ctx, wacc, okv) -> None:
+        """Capacity limit, compaction of the accepted columns to the
+        front (stable), and the append at column k."""
+        okv_i = okv.to(torch.int32)
+        prior = torch.cumsum(okv_i, 0) - okv_i
+        okv = okv & (st.k + prior < ctx.k_limit)
+        wacc = wacc * okv[None, :].to(self.dtype)
+        perm = torch.argsort((~okv).to(torch.int32), stable=True)
+        wacc = wacc[:, perm]
+        n_acc = int(okv.sum())
+        _dus(st.V, wacc, 0, st.k)
+        st.w_start, st.n_new, st.k = st.k, n_acc, st.k + n_acc
+
+    def _orthonormal_append_fast(self, st, ctx, wraw) -> None:
+        """Block CGS(2) against V (two (m,k)x(k,s) GEMM pairs), then the
+        cheap within-block orthonormalization and drop decisions per
+        column - the MATLAB fast path (RAILSsolver.m:554-563)."""
+        m, s_slot = st.V.shape[0], ctx.s_slot
+        tdot, prep, ns = self._tdot, self._inner_prep, ctx.nullspace
+        drop_tol = self.options.ortho_drop_tol
+        dtype, dev = self.dtype, self.device
+        one = torch.ones((), dtype=dtype, device=dev)
+        zero = torch.zeros((), dtype=dtype, device=dev)
+        # column-normalize first so the drop tolerance measures the
+        # shrink of each direction, not its incoming scale
+        n0 = self._col_norm(ctx, wraw)
+        w = wraw / torch.where(n0 > 0, n0, one)[None, :]
+        for _ in range(2):  # CGS(2): twice is enough
+            if ns is not None:
+                w = w - ns @ tdot(ns, prep(ctx, w))
+            w = w - st.V @ tdot(st.V, prep(ctx, w))
+        wacc = torch.zeros((m, s_slot), dtype=dtype, device=dev)
+        flags = []
+        for i in range(s_slot):
+            wi = w[:, i:i + 1]
+            for _ in range(2):
+                wi = wi - wacc @ tdot(wacc, prep(ctx, wi))
+            n1 = self._col_norm(ctx, wi)[0]
+            ok = (n1 > drop_tol) & (n0[i] > 0)
+            wi = torch.where(ok, wi / torch.where(n1 > 0, n1, one), zero)
+            wacc[:, i] = wi[:, 0]
+            flags.append(ok)
+        # final V-cleanup on the normalized block: a column that shrank to
+        # n1 ~ drop_tol amplified its leftover V-component by 1/n1
+        wacc = wacc - st.V @ tdot(st.V, prep(ctx, wacc))
+        if ns is not None:
+            wacc = wacc - ns @ tdot(ns, prep(ctx, wacc))
+        n2 = self._col_norm(ctx, wacc)
+        wacc = wacc / torch.where(n2 > 0, n2, one)[None, :]
+        self._finish_append(st, ctx, wacc, torch.stack(flags))
+
+    def _orthonormal_append(self, st, ctx, wraw) -> None:
+        """Per-column safe path (opts.fast_orthogonalization=False):
+        orthogonalize each candidate against V, the nullspace and the
+        block so far, drop near-dependent ones (reference orthogonalize,
+        src/StlWrapper.cpp:305-321; MATLAB Morth, RAILSsolver.m:538-618)."""
+        m, s_slot = st.V.shape[0], ctx.s_slot
+        tdot, prep, ns = self._tdot, self._inner_prep, ctx.nullspace
+        drop_tol = self.options.ortho_drop_tol
+        dtype, dev = self.dtype, self.device
+        one = torch.ones((), dtype=dtype, device=dev)
+        zero = torch.zeros((), dtype=dtype, device=dev)
+        wacc = torch.zeros((m, s_slot), dtype=dtype, device=dev)
+        flags = []
+        for i in range(s_slot):
+            w = wraw[:, i:i + 1]
+            n0 = torch.sqrt(torch.clamp((w.T @ w)[0, 0], min=0.0))
+            w = w / torch.where(n0 > 0, n0, one)
+            for _ in range(2):  # two CGS passes
+                if ns is not None:
+                    w = w - ns @ tdot(ns, prep(ctx, w))
+                w = w - st.V @ tdot(st.V, prep(ctx, w))
+                w = w - wacc @ tdot(wacc, prep(ctx, w))
+            if ctx.mortho:
+                n1 = torch.sqrt(torch.clamp(
+                    (w.T @ self.M.matmat(w))[0, 0], min=0.0))
+            else:
+                n1 = torch.sqrt(torch.clamp((w.T @ w)[0, 0], min=0.0))
+            ok = (n1 > drop_tol) & (n0 > 0)
+            w = torch.where(ok, w / torch.where(n1 > 0, n1, one), zero)
+            wacc[:, i] = w[:, 0]
+            flags.append(ok)
+        self._finish_append(st, ctx, wacc, torch.stack(flags))
+
+    def _expand(self, st: SolverState, ctx, cands) -> None:
+        opt = self.options
+        w = cands
+        if opt.inv_a is not None and opt.uses_inverse_on_expand:
+            wi = opt.inv_a(w)
+            w = torch.cat([w, wi], dim=1) if opt.expansion_doubles else wi
+        if opt.fast_orthogonalization:
+            self._orthonormal_append_fast(st, ctx, w)
+        else:
+            self._orthonormal_append(st, ctx, w)
+
+
+class _Context:
+    """Per-solve constants: the geometry, the resolved projected-solver
+    method, r0sq, the nullspace basis, and the current capacity Kb."""
+
+    def update(self, **kw):
+        self.__dict__.update(kw)
+
+    def set_kb(self, kb: int, m: int) -> None:
+        self.kb = kb
+        self.k_limit = min(m, kb - self.s_slot)
+        self.col_ids = torch.arange(kb, device=self.r0sq.device)
+
+
+def _host_orthonormalize(w, nullspace, m_op, drop_tol):
+    """Orthonormalize columns (optionally in the M-inner product, with
+    nullspace deflation), dropping dependent columns.  Helper for the
+    initial space; the column count may shrink."""
+    if w.ndim == 1:
+        w = w[:, None]
+    cols = []
+
+    def ip(x):
+        return m_op.matmat(x) if m_op is not None else x
+
+    for i in range(w.shape[1]):
+        v = w[:, i:i + 1]
+        n0 = float(torch.linalg.norm(v))
+        if n0 == 0.0:
+            continue
+        v = v / n0
+        for _ in range(2):
+            if nullspace is not None:
+                v = v - nullspace @ (nullspace.T @ ip(v))
+            for c in cols:
+                v = v - c @ (c.T @ ip(v))
+        if m_op is not None:
+            n1 = float(torch.sqrt(torch.clamp(
+                (v.T @ m_op.matmat(v))[0, 0], min=0)))
+        else:
+            n1 = float(torch.linalg.norm(v))
+        if n1 < drop_tol:
+            continue
+        cols.append(v / n1)
+    if not cols:
+        raise ValueError("initial space is empty after orthogonalization")
+    return torch.cat(cols, dim=1)
+
+
+def solve(a, b, m=None, maxit=None, tol=None, options=None, compiled=False,
+          progress=None, *, device=None, draws=None, **opt_kwargs):
+    """Functional front-end mirroring MATLAB
+    ``[V,T,res,iter,resvec,timevec,restart_data] = RAILSsolver(A,M,B,...)``
+    with the argument order (A, B, M) of the C++ Solver ctor.
+
+    Returns (V, T, info).  Runs on ``device`` (default ``cuda``).
+    """
+    if options is None:
+        if maxit is not None:
+            opt_kwargs["maxit"] = maxit
+        if tol is not None:
+            opt_kwargs["tol"] = tol
+        options = SolverOptions(**opt_kwargs)
+    solver = LyapunovSolver(a, b, m, options, device=device, draws=draws)
+    return solver.solve(compiled=compiled, progress=progress)

@@ -1,0 +1,110 @@
+"""State carried across from the JAX package.
+
+Turns the JAX package's objects, handed over as numpy arrays and plain
+Python values (``np.asarray`` of each array), into the port's objects on
+a given device.  Nothing here imports JAX: a caller that holds a
+``rails_tpu`` object pulls its arrays out with ``np.asarray`` and passes
+them in.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from rails_tpu_torch.core.options import SolverOptions
+from rails_tpu_torch.operators import DenseOperator, DiagonalOperator
+from rails_tpu_torch.sparse.formats import DiaMatrix, SparseOperator
+from rails_tpu_torch.utils.device import as_tensor, resolve_device
+
+__all__ = ["dia_payload", "sparse_operator", "diagonal_operator",
+           "dense_operator", "rhs", "solver_options", "restart_data"]
+
+# SolverOptions fields that carry an array (moved to the device) and the
+# derived fields __post_init__ sets (not constructor arguments)
+_ARRAY_FIELDS = ("space", "nullspace")
+_DERIVED_FIELDS = ("projection_major", "projection_minor")
+
+
+def dia_payload(data, offsets: Sequence[int], shape: Tuple[int, int], *,
+                device=None, dtype=None) -> DiaMatrix:
+    """A ``DiaMatrix`` from the JAX package's DIA payload fields
+    ``data`` (d, m), ``offsets`` and ``shape``."""
+    dev = resolve_device(device)
+    return DiaMatrix(as_tensor(np.asarray(data), dev, dtype),
+                     tuple(int(o) for o in offsets),
+                     (int(shape[0]), int(shape[1])))
+
+
+def sparse_operator(fwd: Mapping, bwd: Optional[Mapping] = None, *,
+                    is_symmetric: bool = False, is_spd: bool = False,
+                    is_hurwitz: bool = False, nnz: int = 0, device=None,
+                    dtype=None) -> SparseOperator:
+    """A DIA ``SparseOperator`` from payload dicts {data, offsets, shape}
+    (``bwd`` the transposed payload, None when symmetric) and the tags."""
+    def build(p):
+        return dia_payload(p["data"], p["offsets"], p["shape"],
+                           device=device, dtype=dtype)
+
+    return SparseOperator(build(fwd), None if bwd is None else build(bwd),
+                          is_symmetric=bool(is_symmetric),
+                          is_spd=bool(is_spd), is_hurwitz=bool(is_hurwitz),
+                          nnz=int(nnz))
+
+
+def diagonal_operator(d, *, is_spd: Optional[bool] = None, device=None,
+                      dtype=None) -> DiagonalOperator:
+    """A diagonal M from its diagonal ``d``."""
+    dev = resolve_device(device)
+    return DiagonalOperator(as_tensor(np.asarray(d), dev, dtype),
+                            is_spd=is_spd, device=dev)
+
+
+def dense_operator(a, *, is_symmetric: bool = False, is_spd: bool = False,
+                   is_hurwitz: bool = False, device=None,
+                   dtype=None) -> DenseOperator:
+    dev = resolve_device(device)
+    return DenseOperator(as_tensor(np.asarray(a), dev, dtype),
+                         is_symmetric=bool(is_symmetric),
+                         is_spd=bool(is_spd), is_hurwitz=bool(is_hurwitz),
+                         device=dev)
+
+
+def rhs(b, *, device=None, dtype=None) -> torch.Tensor:
+    """The right-hand side factor B (m, p) (a 1-D B becomes (m, 1))."""
+    t = as_tensor(np.asarray(b), device, dtype)
+    return t[:, None] if t.ndim == 1 else t
+
+
+def restart_data(rd: Mapping, *, device=None, dtype=None) -> dict:
+    """``restart_data`` {V, AV, VAV} on the device."""
+    return {k: as_tensor(np.asarray(rd[k]), device, dtype)
+            for k in ("V", "AV", "VAV")}
+
+
+def solver_options(fields: Mapping, *, device=None,
+                   dtype=None) -> SolverOptions:
+    """``SolverOptions`` from the JAX package's option fields
+    (``dataclasses.asdict`` of its SolverOptions, or any subset).
+    ``dtype`` names the solve dtype when given (numpy names such as
+    ``'float64'`` are taken too); array fields move to the device."""
+    kw = {k: v for k, v in fields.items() if k not in _DERIVED_FIELDS}
+    names = {f.name for f in dataclasses.fields(SolverOptions)}
+    unknown = set(kw) - names
+    if unknown:
+        raise ValueError(f"unknown SolverOptions fields {sorted(unknown)}")
+    if dtype is not None:
+        kw["dtype"] = dtype
+    if kw.get("dtype") is not None and not isinstance(kw["dtype"],
+                                                      torch.dtype):
+        kw["dtype"] = getattr(torch, np.dtype(kw["dtype"]).name)
+    for k in _ARRAY_FIELDS:
+        if kw.get(k) is not None:
+            kw[k] = as_tensor(np.asarray(kw[k]), device, kw.get("dtype"))
+    if kw.get("restart_data") is not None:
+        kw["restart_data"] = restart_data(kw["restart_data"], device=device,
+                                          dtype=kw.get("dtype"))
+    return SolverOptions(**kw)

@@ -1,0 +1,282 @@
+"""Dense (projected) continuous-time Lyapunov solvers in PyTorch - the
+counterpart of the JAX package's ``linalg/dense_lyap.py``.
+
+Solves the k-by-k dense equation
+
+    A @ X @ E' + E @ X @ A' + C = 0        (E = I when e is None)
+
+which is the role SLICOT's ``sb03md`` (standard) and ``sg03ad``
+(generalized) play in the reference.  The methods are the JAX package's:
+
+- ``eigh``: symmetric A.  ``A = Q diag(w) Q'`` then
+  ``X = -Q ((Q'CQ) / (w_i + w_j)) Q'``.
+- ``schur``: general A.  Complex Schur decomposition by the port's own
+  Hessenberg + shifted-QR iteration (``schur_qr.py``; PyTorch has no
+  Schur), then Bartels-Stewart back-substitution on the triangular factor.
+- ``sign``: Newton iteration for the matrix sign function, Hurwitz A.
+- ``kron``: O(k^6) Kronecker linear solve; robust oracle and small-k
+  fallback.
+
+All methods accept an optional nonsingular ``e`` and reduce the
+generalized equation to standard form (eigenvalue-clipped congruence for
+SPD or symmetric E, E^{-1} otherwise) after a symmetric diagonal
+balancing, followed by residual-tracked refinement on the generalized
+residual.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+
+from rails_tpu_torch.linalg.schur_qr import complex_schur
+from rails_tpu_torch.utils.dtypes import complex_dtype_for, highest_precision
+
+__all__ = ["lyap", "lyap_residual"]
+
+
+def _sym(x):
+    return 0.5 * (x + x.mH) if torch.is_complex(x) else 0.5 * (x + x.T)
+
+
+def _balance_scaling(e):
+    """Symmetric diagonal balancing D: D E D has unit-ish diagonal, which
+    collapses the dynamic range of graded mass matrices before any
+    factorization sees them.  Entries with negligible diagonal fall back
+    to the global scale so D stays bounded."""
+    fi = torch.finfo(e.dtype)
+    de = torch.abs(torch.diagonal(e))
+    dmax = torch.max(de) + fi.tiny
+    return torch.rsqrt(torch.maximum(de, fi.eps * dmax))
+
+
+def _reduce_generalized(a, c, e, e_kind: str):
+    """Reduce A X E' + E X A' + C = 0 to standard form At Y + Y At' + Ct
+    = 0.  Returns (at, c_fwd, back): ``c_fwd`` maps a symmetric right-hand
+    side into the reduced space, ``back`` maps a reduced solution to X.
+
+    - 'spd': E = Q diag(lam) Q', Z = Q diag(max(lam, delta))^{-1/2}, so
+      Z'EZ = I (multiplication-only; keeps A symmetric).
+    - 'symmetric' (indefinite allowed): the sign congruence,
+      Z = Q |lam|_clip^{-1/2}, S = sign(lam), A2 = S (Z'AZ),
+      C2 = S (Z'CZ) S.
+    - general: At = E^{-1} A, Ct = E^{-1} C E^{-T}, X = Y.
+    """
+    fi = torch.finfo(e.dtype)
+    if e_kind in ("spd", "symmetric"):
+        lam, q = torch.linalg.eigh(_sym(e))
+        delta = 10 * fi.eps * (torch.max(torch.abs(lam)) + fi.tiny)
+        if e_kind == "spd":
+            z = q * torch.rsqrt(torch.maximum(lam, delta))[None, :]
+            at = z.T @ a @ z
+
+            def c_fwd(cc):
+                return _sym(z.T @ cc @ z)
+
+            def back(y):
+                return z @ y @ z.T
+
+            return at, c_fwd, back
+
+        s = torch.where(lam < 0, -1.0, 1.0).to(e.dtype)
+        z = q * torch.rsqrt(torch.maximum(torch.abs(lam), delta))[None, :]
+        at = s[:, None] * (z.T @ a @ z)
+
+        def c_fwd(cc):
+            return _sym(s[:, None] * (z.T @ cc @ z) * s[None, :])
+
+        def back(y):
+            return z @ y @ z.T
+
+        return at, c_fwd, back
+
+    at = torch.linalg.solve(e, a)
+
+    def c_fwd(cc):
+        return _sym(torch.linalg.solve(e, torch.linalg.solve(e, cc).T).T)
+
+    return at, c_fwd, lambda y: y
+
+
+def _eigh_factor(a):
+    """Factored solver for symmetric A: one eigh, then each solve is two
+    matmuls and a Cauchy scaling."""
+    w, q = torch.linalg.eigh(_sym(a))
+    denom = w[:, None] + w[None, :]
+    # a zero denominator means a singular Lyapunov operator: those modes
+    # are zeroed (pseudo-inverse); callers can check the residual
+    eps = torch.finfo(denom.dtype).eps * (torch.max(torch.abs(w)) + 1.0)
+    bad = torch.abs(denom) < eps
+    denom = torch.where(bad, torch.ones_like(denom), denom)
+
+    def solve(c):
+        ct = q.T @ c @ q
+        xt = torch.where(bad, torch.zeros_like(ct), -ct / denom)
+        return q @ xt @ q.T
+
+    return solve
+
+
+def _schur_factor(a, max_sweeps: Optional[int] = None):
+    """General A via complex Schur + Bartels-Stewart back-substitution.
+
+    A = U T U^H, so the equation becomes T Y + Y T^H = -U^H C U with
+    Y = U^H X U and X = Re(U Y U^H).  Back-substitution runs from the
+    last column to the first:
+
+        (T + conj(T[j,j]) I) y_j = g_j - sum_{i>j} conj(T[j,i]) y_i.
+    """
+    k = a.shape[0]
+    cdtype = complex_dtype_for(a.dtype)
+    t, u = complex_schur(a.to(cdtype), max_sweeps=max_sweeps)
+    eye = torch.eye(k, dtype=cdtype, device=a.device)
+    col_ids = torch.arange(k, device=a.device)
+    zero = torch.zeros((), dtype=cdtype, device=a.device)
+
+    def solve(c):
+        g = -(u.mH @ c.to(cdtype) @ u)
+        y = torch.zeros((k, k), dtype=cdtype, device=a.device)
+        for j in range(k - 1, -1, -1):
+            tj = torch.where(col_ids > j, torch.conj(t[j, :]), zero)
+            rhs = g[:, j] - y @ tj
+            y[:, j] = torch.linalg.solve_triangular(
+                t + torch.conj(t[j, j]) * eye, rhs[:, None],
+                upper=True)[:, 0]
+        x = u @ y @ u.mH
+        return _sym(x.real.to(a.dtype))
+
+    return solve
+
+
+def _lyap_sign(a, c, iterations: int = 30):
+    """Newton sign iteration (Hurwitz A only), with determinant scaling:
+    Z <- (s Z + (s Z)^{-1}) / 2, Q <- (s Q + (s Z)^{-T} Q (s Z)^{-1}) / 2.
+    At convergence Z -> sign(A) = -I and X = Q_inf / 2."""
+    k = a.shape[0]
+    z, q = a, c
+    for _ in range(iterations):
+        zinv = torch.linalg.inv(z)
+        _, logdet = torch.linalg.slogdet(z)
+        s = torch.exp(-logdet / k)
+        s = torch.where(torch.isfinite(s) & (s > 0), s, torch.ones_like(s))
+        z_new = 0.5 * (s * z + zinv / s)
+        q = _sym(0.5 * (s * q + (zinv @ q @ zinv.T) / s))
+        z = z_new
+    return _sym(0.5 * q)
+
+
+def _lyap_kron(a, c, e=None):
+    """Row-major Kronecker solve: (a (x) e + e (x) a) rvec(x) = -rvec(c)."""
+    k = a.shape[0]
+    if e is None:
+        e = torch.eye(k, dtype=a.dtype, device=a.device)
+    big = torch.kron(a, e) + torch.kron(e, a)
+    x = torch.linalg.solve(big, -c.reshape(-1))
+    return _sym(x.reshape(k, k))
+
+
+@highest_precision
+def lyap(a: torch.Tensor, c: torch.Tensor, e: Optional[torch.Tensor] = None,
+         *, method: str = "schur", assume_e_spd: bool = False,
+         e_kind: Optional[str] = None, sign_iterations: int = 30,
+         refine: Optional[int] = None,
+         refine_generalized: Optional[int] = None) -> torch.Tensor:
+    """Solve A X E' + E X A' + C = 0 for symmetric X.
+
+    Args:
+      a: (k, k) real matrix.
+      c: (k, k) real symmetric matrix.
+      e: optional (k, k) nonsingular matrix (generalized equation).
+      method: 'schur' (general A), 'eigh' (symmetric A), 'sign' (Hurwitz
+        A), or 'kron' (small-k robust fallback / oracle).
+      assume_e_spd: alias for ``e_kind='spd'``.
+      e_kind: 'general' (default), 'spd', or 'symmetric' (indefinite E
+        allowed; see ``_reduce_generalized``).
+      refine: rounds of refinement with the cached factorization
+        (default 1 at float32, 0 at float64).
+      refine_generalized: rounds of residual-tracked refinement on the
+        generalized residual (default 8 for a general E, 2 for an SPD or
+        symmetric one, 0 without E); the best iterate is kept and the loop
+        stops when a round improves the residual by less than 10%.
+    """
+    if a.ndim != 2 or a.shape[0] != a.shape[1]:
+        raise ValueError(f"a must be square, got {tuple(a.shape)}")
+    if e_kind is None:
+        e_kind = "spd" if assume_e_spd else "general"
+    if e_kind not in ("general", "spd", "symmetric"):
+        raise ValueError(f"unknown e_kind {e_kind!r}")
+    if refine is None:
+        refine = 1 if a.dtype == torch.float32 else 0
+    if refine_generalized is None:
+        refine_generalized = 0 if e is None else (
+            8 if e_kind == "general" else 2)
+
+    d = None
+    if e is not None:
+        d = _balance_scaling(e)
+        a = d[:, None] * a * d[None, :]
+        c = d[:, None] * c * d[None, :]
+        e = d[:, None] * e * d[None, :]
+
+    if method == "kron":
+        x = _lyap_kron(a, c, e)
+        # X = D X_bal D (the balanced solution is X_bal = D^{-1} X D^{-1})
+        return x if d is None else x * d[:, None] * d[None, :]
+
+    c_fwd = _sym
+    back = lambda y: y  # noqa: E731
+    a_red = a
+    if e is not None:
+        a_red, c_fwd, back = _reduce_generalized(a, c, e, e_kind)
+
+    if method in ("eigh", "schur"):
+        factor = _eigh_factor if method == "eigh" else _schur_factor
+        slv = factor(a_red)
+    elif method == "sign":
+        slv = functools.partial(_lyap_sign, a_red,
+                                iterations=sign_iterations)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+
+    ct = c_fwd(c) if e is not None else c
+    y = slv(ct)
+    if method in ("eigh", "schur"):
+        # one cheap correction with the cached factorization recovers most
+        # of the accuracy float32 loses in the transform roundoff
+        for _ in range(refine):
+            r = a_red @ y + y @ a_red.T + ct
+            y = y - slv(-r)
+    x = back(_sym(y))
+    if e is not None and refine_generalized > 0:
+        def gen_res(xx):
+            return _sym(a @ xx @ e.T + e @ xx @ a.T + c)
+
+        rn = torch.linalg.norm(gen_res(x))
+        best_x, best_rn = x, rn
+        for _ in range(refine_generalized):
+            x = x + back(_sym(slv(c_fwd(gen_res(x)))))
+            rn_new = torch.linalg.norm(gen_res(x))
+            better = rn_new < best_rn
+            best_x = torch.where(better, x, best_x)
+            best_rn = torch.where(better, rn_new, best_rn)
+            # stall: essentially no progress this round (convergence or
+            # cond-limited stagnation); the best iterate is kept
+            stalled = bool(rn_new > 0.9 * rn)
+            rn = rn_new
+            if stalled:
+                break
+        x = best_x
+    if e is not None:
+        x = _sym(x) * d[:, None] * d[None, :]
+    return x
+
+
+def lyap_residual(a, x, c, e=None):
+    """|| A X E' + E X A' + C ||_F — correctness check used by the tests."""
+    if e is None:
+        r = a @ x + x @ a.T + c
+    else:
+        r = a @ x @ e.T + e @ x @ a.T + c
+    return torch.linalg.norm(r)
