@@ -6,9 +6,11 @@ CUDA kernel for every Pallas TPU kernel on the ported path.  Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``; asking for
 ``cuda`` without a card raises.
 
-This slice ports the generalized DIA solve: operators, the DIA format
-and its CUDA SpMM kernel, the dense projected Lyapunov solvers, and the
-solver.  It imports neither ``jax`` nor ``rails_tpu``.
+Ported so far: the operators; the DIA, ELL and HYB formats with their
+CUDA SpMM kernels; the dense projected Lyapunov solvers; the solver; the
+Schur reduction for a singular M; the eigensolvers; MatrixMarket I/O,
+parameter files and the CLI (``python -m rails_tpu_torch.cli``).  It
+imports neither ``jax`` nor ``rails_tpu``.
 """
 
 __version__ = "0.1.0"
@@ -37,8 +39,12 @@ from rails_tpu_torch.core.solver import (  # noqa: F401
     SolveInfo,
     solve,
 )
+from rails_tpu_torch.eigs import eigs, eigs_general  # noqa: F401
+from rails_tpu_torch.schur import SchurReduction, schur_reduce  # noqa: F401
 from rails_tpu_torch.sparse.formats import (  # noqa: F401
     DiaMatrix,
+    EllMatrix,
+    HybMatrix,
     SparseOperator,
     sparse_from_csr,
     sparse_from_dense,

@@ -17,11 +17,13 @@ import torch
 
 from rails_tpu_torch.core.options import SolverOptions
 from rails_tpu_torch.operators import DenseOperator, DiagonalOperator
-from rails_tpu_torch.sparse.formats import DiaMatrix, SparseOperator
+from rails_tpu_torch.sparse.formats import (
+    DiaMatrix, EllMatrix, HybMatrix, SparseOperator)
 from rails_tpu_torch.utils.device import as_tensor, resolve_device
 
-__all__ = ["dia_payload", "sparse_operator", "diagonal_operator",
-           "dense_operator", "rhs", "solver_options", "restart_data"]
+__all__ = ["dia_payload", "ell_payload", "hyb_payload", "sparse_operator",
+           "diagonal_operator", "dense_operator", "rhs", "solver_options",
+           "restart_data"]
 
 # SolverOptions fields that carry an array (moved to the device) and the
 # derived fields __post_init__ sets (not constructor arguments)
@@ -39,17 +41,49 @@ def dia_payload(data, offsets: Sequence[int], shape: Tuple[int, int], *,
                      (int(shape[0]), int(shape[1])))
 
 
+def ell_payload(indices, values, shape: Tuple[int, int], *, device=None,
+                dtype=None) -> EllMatrix:
+    """An ``EllMatrix`` from the JAX package's ELL payload fields
+    ``indices`` (m, L), ``values`` (m, L) and ``shape`` (its windowed
+    ``well`` payload has no counterpart and is not taken)."""
+    dev = resolve_device(device)
+    return EllMatrix(as_tensor(np.asarray(indices, np.int32), dev),
+                     as_tensor(np.asarray(values), dev, dtype),
+                     (int(shape[0]), int(shape[1])))
+
+
+def hyb_payload(dia: Mapping, ell: Mapping, shape: Tuple[int, int], *,
+                device=None, dtype=None) -> HybMatrix:
+    """A ``HybMatrix`` from the JAX package's HYB parts, as dicts
+    {data, offsets, shape} and {indices, values, shape}."""
+    return HybMatrix(_payload(dia, device, dtype),
+                     _payload(ell, device, dtype),
+                     (int(shape[0]), int(shape[1])))
+
+
+def _payload(p: Mapping, device, dtype):
+    """A payload from its dict: HYB {dia, ell, shape}, ELL {indices,
+    values, shape} or DIA {data, offsets, shape}."""
+    if "dia" in p:
+        return hyb_payload(p["dia"], p["ell"], p["shape"], device=device,
+                           dtype=dtype)
+    if "indices" in p:
+        return ell_payload(p["indices"], p["values"], p["shape"],
+                           device=device, dtype=dtype)
+    return dia_payload(p["data"], p["offsets"], p["shape"], device=device,
+                       dtype=dtype)
+
+
 def sparse_operator(fwd: Mapping, bwd: Optional[Mapping] = None, *,
                     is_symmetric: bool = False, is_spd: bool = False,
                     is_hurwitz: bool = False, nnz: int = 0, device=None,
                     dtype=None) -> SparseOperator:
-    """A DIA ``SparseOperator`` from payload dicts {data, offsets, shape}
+    """A ``SparseOperator`` from payload dicts - DIA {data, offsets,
+    shape}, ELL {indices, values, shape} or HYB {dia, ell, shape} -
     (``bwd`` the transposed payload, None when symmetric) and the tags."""
-    def build(p):
-        return dia_payload(p["data"], p["offsets"], p["shape"],
-                           device=device, dtype=dtype)
-
-    return SparseOperator(build(fwd), None if bwd is None else build(bwd),
+    return SparseOperator(_payload(fwd, device, dtype),
+                          None if bwd is None else _payload(bwd, device,
+                                                            dtype),
                           is_symmetric=bool(is_symmetric),
                           is_spd=bool(is_spd), is_hurwitz=bool(is_hurwitz),
                           nnz=int(nnz))

@@ -1,17 +1,26 @@
 """Device sparse-matrix formats: the counterpart of the JAX package's
-``sparse/formats.py``, DIA part.
+``sparse/formats.py``.
 
 - **DIA (diagonal)**: offsets + dense diagonal data.  The PDE matrices the
   reference targets (2D Laplacian stencils, structured-grid Jacobians)
   have a handful of distinct diagonals; SpMM is a short sum of shifted
   multiply-adds with no gathers, bound by the bytes it moves.  On a CUDA
-  tensor every apply goes to the hand-written kernel
-  (``sparse/spmm.py::dia_spmm``, ``csrc/dia_spmm.cu``).
+  tensor every apply goes to ``sparse/spmm.py::dia_spmm``
+  (``csrc/dia_spmm.cu``).
+- **ELL (padded row-wise)**: column indices + values padded to the
+  largest row degree; y[i] = sum_l values[i, l] * x[indices[i, l]].
+  Handles general sparsity: the Schur path's A12, A21 and A22.  On a CUDA
+  tensor every apply goes to ``sparse/ell_spmm.py::ell_spmm``
+  (``csrc/ell_spmm.cu``).
+- **HYB**: the densely occupied diagonals as DIA plus a skinny ELL
+  remainder; an apply is one launch of each kernel.
 
-ELL and HYB (the JAX package's ``EllMatrix``/``HybMatrix`` and their
-windowed-ELL kernels) are not ported yet: ``sparse_from_scipy`` raises
-``NotImplementedError`` where the JAX package would pick one of them
-(ROADMAP, the ELL/HYB slice).  Host-side analysis uses scipy.sparse.
+``sparse_from_scipy(fmt='auto')`` picks the format by the JAX package's
+rule and builds the same payloads (indices, values, offsets, data).  The
+JAX package's windowed-ELL payload (``WindowedEll``: window starts and
+window-local indices for the TPU's DMA) has no counterpart: the CUDA
+kernel reads the plain ``indices``/``values``.  Host-side analysis uses
+scipy.sparse.
 """
 
 from __future__ import annotations
@@ -24,19 +33,21 @@ import scipy.sparse as sp
 import torch
 
 from rails_tpu_torch.operators import LinearOperator
+from rails_tpu_torch.sparse.ell_spmm import ell_spmm, ell_spmm_reference
+from rails_tpu_torch.sparse.spmm import dia_spmm, dia_spmm_reference
 from rails_tpu_torch.utils.device import as_tensor, resolve_device
 
 __all__ = [
     "DiaMatrix",
+    "EllMatrix",
+    "HybMatrix",
     "SparseOperator",
+    "ell_arrays_from_scipy",
     "payload_to_scipy",
     "sparse_from_dense",
     "sparse_from_scipy",
     "sparse_from_csr",
 ]
-
-_ELL_TODO = ("the ELL and HYB formats are not ported to rails_tpu_torch "
-             "yet (ROADMAP: the ELL/HYB slice); ")
 
 
 @dataclasses.dataclass
@@ -65,8 +76,6 @@ class DiaMatrix:
 
     def matmat(self, x: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch product (``dia_spmm_reference``)."""
-        from rails_tpu_torch.sparse.spmm import dia_spmm_reference
-
         return dia_spmm_reference(self, x)
 
     def transpose(self) -> "DiaMatrix":
@@ -90,13 +99,88 @@ class DiaMatrix:
         return DiaMatrix(self.data.to(dev), self.offsets, self.shape)
 
 
-class SparseOperator(LinearOperator):
-    """LinearOperator over a DIA payload, with a transposed payload for
-    rmatmat (built host-side at construction; None when symmetric)."""
+@dataclasses.dataclass
+class EllMatrix:
+    """Padded row-wise format: y[i] = sum_l values[i, l] * x[indices[i, l]].
+    Padding slots have values == 0 and *row-local* indices (the row's own
+    first column; an empty row's clamped row id), as the JAX package
+    builds them.  Every index lies in [0, n): checked here, once, so the
+    kernel gathers without a bounds test."""
 
-    def __init__(self, fwd: DiaMatrix, bwd: Optional[DiaMatrix], *,
-                 is_symmetric=False, is_spd=False, is_hurwitz=False,
-                 nnz: int = 0):
+    indices: torch.Tensor            # (m, L) int32
+    values: torch.Tensor             # (m, L)
+    shape: Tuple[int, int]
+
+    def __post_init__(self):
+        self.shape = (int(self.shape[0]), int(self.shape[1]))
+        m, n = self.shape
+        if self.indices.dtype != torch.int32:
+            raise TypeError(f"ELL indices must be int32, got "
+                            f"{self.indices.dtype}")
+        if self.indices.ndim != 2 or self.indices.shape[0] != m \
+                or self.values.shape != self.indices.shape:
+            raise ValueError(
+                f"ELL indices {tuple(self.indices.shape)} and values "
+                f"{tuple(self.values.shape)} do not match shape {self.shape}")
+        if self.values.device != self.indices.device:
+            raise ValueError("ELL indices and values on different devices")
+        if n > 0 and self.indices.numel():
+            lo, hi = (int(v) for v in torch.aminmax(self.indices))
+            if lo < 0 or hi >= n:
+                raise ValueError(f"ELL indices span [{lo}, {hi}], outside "
+                                 f"[0, {n})")
+
+    def matmat(self, x: torch.Tensor) -> torch.Tensor:
+        """The plain PyTorch product (``ell_spmm_reference``)."""
+        return ell_spmm_reference(self, x)
+
+    def astype(self, dtype) -> "EllMatrix":
+        if self.values.dtype == dtype:
+            return self
+        return EllMatrix(self.indices, self.values.to(dtype), self.shape)
+
+    def to(self, device) -> "EllMatrix":
+        dev = resolve_device(device)
+        if self.values.device == dev:
+            return self
+        return EllMatrix(self.indices.to(dev), self.values.to(dev),
+                         self.shape)
+
+
+@dataclasses.dataclass
+class HybMatrix:
+    """Hybrid DIA + ELL split: the densely occupied diagonals ride the DIA
+    kernel, the stray off-stencil entries a skinny ELL remainder."""
+
+    dia: DiaMatrix
+    ell: EllMatrix
+    shape: Tuple[int, int]
+
+    def matmat(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dia.matmat(x) + self.ell.matmat(x)
+
+    def astype(self, dtype) -> "HybMatrix":
+        dia = self.dia.astype(dtype)
+        ell = self.ell.astype(dtype)
+        if dia is self.dia and ell is self.ell:
+            return self
+        return HybMatrix(dia, ell, self.shape)
+
+    def to(self, device) -> "HybMatrix":
+        dia = self.dia.to(device)
+        ell = self.ell.to(device)
+        if dia is self.dia and ell is self.ell:
+            return self
+        return HybMatrix(dia, ell, self.shape)
+
+
+class SparseOperator(LinearOperator):
+    """LinearOperator over a DIA, ELL or HYB payload, with a transposed
+    payload for rmatmat (built host-side at construction; None when
+    symmetric)."""
+
+    def __init__(self, fwd, bwd, *, is_symmetric=False, is_spd=False,
+                 is_hurwitz=False, nnz: int = 0):
         self.fwd = fwd
         self.bwd = bwd
         self.is_symmetric = is_symmetric
@@ -110,23 +194,36 @@ class SparseOperator(LinearOperator):
 
     @property
     def format(self) -> str:
-        return "dia"
+        if isinstance(self.fwd, DiaMatrix):
+            return "dia"
+        return "hyb" if isinstance(self.fwd, HybMatrix) else "ell"
+
+    def _values(self) -> torch.Tensor:
+        p = self.fwd.dia if isinstance(self.fwd, HybMatrix) else self.fwd
+        return p.data if isinstance(p, DiaMatrix) else p.values
 
     @property
     def payload_dtype(self):
-        return self.fwd.data.dtype
+        return self._values().dtype
 
     @property
     def payload_device(self):
-        return self.fwd.data.device
+        return self._values().device
 
     @staticmethod
-    def _apply(payload: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
-        from rails_tpu_torch.sparse.spmm import dia_spmm
-
+    def _apply(payload, x: torch.Tensor) -> torch.Tensor:
+        """On a CUDA tensor each payload goes to its kernel: DIA to
+        ``dia_spmm``, ELL to ``ell_spmm``, HYB to one launch of each."""
         if x.ndim == 1:
-            return dia_spmm(payload, x[:, None].contiguous())[:, 0]
-        return dia_spmm(payload, x.contiguous())
+            return SparseOperator._apply(payload, x[:, None])[:, 0]
+        x = x.contiguous()
+        if isinstance(payload, DiaMatrix):
+            return dia_spmm(payload, x)
+        if isinstance(payload, EllMatrix):
+            return ell_spmm(payload, x)
+        if isinstance(payload, HybMatrix):
+            return dia_spmm(payload.dia, x) + ell_spmm(payload.ell, x)
+        raise TypeError(type(payload))
 
     def matmat(self, x):
         return self._apply(self.fwd, x)
@@ -134,10 +231,15 @@ class SparseOperator(LinearOperator):
     def rmatmat(self, x):
         return self._apply(self.fwd if self.bwd is None else self.bwd, x)
 
+    def matmat2(self, x):
+        raise NotImplementedError(
+            "the error-free apply matmat2 (precision='compensated') is not "
+            "ported yet: ROADMAP, the refinement slice")
+
     def to_dense(self, dtype=None, device=None):
-        return self.fwd.matmat(torch.eye(
-            self.shape[1], dtype=self.fwd.data.dtype,
-            device=self.fwd.data.device))
+        v = self._values()
+        return self.fwd.matmat(torch.eye(self.shape[1], dtype=v.dtype,
+                                         device=v.device))
 
     def _like(self, fwd, bwd):
         return SparseOperator(fwd, bwd, is_symmetric=self.is_symmetric,
@@ -159,27 +261,39 @@ class SparseOperator(LinearOperator):
         return self._like(fwd, bwd)
 
 
-def payload_to_scipy(p: DiaMatrix) -> sp.csr_matrix:
-    """Host-side inverse of sparse_from_scipy for a DIA payload
+def payload_to_scipy(p) -> sp.csr_matrix:
+    """Host-side inverse of sparse_from_scipy for a device payload
     (diagnostics: condest checks, test oracles)."""
-    if not isinstance(p, DiaMatrix):
-        raise TypeError(type(p))
-    m, n = p.shape
-    data = p.data.detach().cpu().numpy()
-    rows, cols, vals = [], [], []
-    for k, off in enumerate(p.offsets):
-        lo, hi = max(0, -off), min(m, n - off)
-        if hi <= lo:
-            continue
-        i = np.arange(lo, hi)
-        rows.append(i)
-        cols.append(i + off)
-        vals.append(data[k, lo:hi])
-    if not vals:
-        return sp.csr_matrix(p.shape, dtype=data.dtype)
-    return sp.coo_matrix(
-        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
-        shape=p.shape).tocsr()
+    if isinstance(p, DiaMatrix):
+        m, n = p.shape
+        data = p.data.detach().cpu().numpy()
+        rows, cols, vals = [], [], []
+        for k, off in enumerate(p.offsets):
+            lo, hi = max(0, -off), min(m, n - off)
+            if hi <= lo:
+                continue
+            i = np.arange(lo, hi)
+            rows.append(i)
+            cols.append(i + off)
+            vals.append(data[k, lo:hi])
+        if not vals:
+            return sp.csr_matrix(p.shape, dtype=data.dtype)
+        return sp.coo_matrix(
+            (np.concatenate(vals),
+             (np.concatenate(rows), np.concatenate(cols))),
+            shape=p.shape).tocsr()
+    if isinstance(p, EllMatrix):
+        ind = p.indices.detach().cpu().numpy()
+        val = p.values.detach().cpu().numpy()
+        m, ell_l = ind.shape
+        rows = np.repeat(np.arange(m), ell_l)
+        out = sp.coo_matrix((val.ravel(), (rows, ind.ravel())),
+                            shape=p.shape).tocsr()
+        out.eliminate_zeros()
+        return out
+    if isinstance(p, HybMatrix):
+        return (payload_to_scipy(p.dia) + payload_to_scipy(p.ell)).tocsr()
+    raise TypeError(type(p))
 
 
 def _dia_from_scipy(a: sp.spmatrix, dtype, device) -> DiaMatrix:
@@ -199,20 +313,113 @@ def _dia_from_scipy(a: sp.spmatrix, dtype, device) -> DiaMatrix:
     return DiaMatrix(as_tensor(data, device, dtype), offsets, (m, n))
 
 
+def ell_arrays_from_scipy(a: sp.spmatrix):
+    """Raw padded row-ELL (indices int32, values float64) of a scipy
+    matrix, as the JAX package builds them: padding slots take the row's
+    own first column index, an empty row its row id clamped to n - 1
+    (value 0 either way)."""
+    csr = a.tocsr()
+    m, n = csr.shape
+    deg = np.diff(csr.indptr)
+    ell_l = max(int(deg.max()), 1) if m else 1
+    # empty rows pad with the clamped row id; the clamp keeps the index
+    # below n for the wide-short A21 of a Schur split
+    pad = np.minimum(np.arange(m, dtype=np.int64), max(n - 1, 0))
+    if csr.nnz:
+        first = np.where(deg > 0, csr.indices[np.minimum(
+            csr.indptr[:-1], csr.nnz - 1)], pad)
+    else:
+        first = pad
+    indices = np.repeat(first[:, None], ell_l, axis=1).astype(np.int32)
+    values = np.zeros((m, ell_l), dtype=np.float64)
+    if csr.nnz:
+        rows = np.repeat(np.arange(m), deg)
+        slots = np.arange(csr.nnz) - np.repeat(csr.indptr[:-1], deg)
+        indices[rows, slots] = csr.indices
+        values[rows, slots] = csr.data
+    return indices, values
+
+
+def _ell_from_scipy(a: sp.spmatrix, dtype, device) -> EllMatrix:
+    indices, values = ell_arrays_from_scipy(a)
+    return EllMatrix(as_tensor(indices, device),
+                     as_tensor(values, device, dtype), a.shape)
+
+
+def _hyb_split(a: sp.csr_matrix, dia_fill_limit: float,
+               dia_max_offsets: int):
+    """Pick the diagonals worth storing densely: greedily keep the most
+    occupied ones while the DIA fill (one m-vector per kept diagonal)
+    stays under ``dia_fill_limit`` x the nnz they cover.  Returns
+    (dia_part, ell_part) as scipy matrices, or None if the split isn't
+    worthwhile (covers < 50% of nnz or the remainder isn't small)."""
+    coo = a.tocoo()
+    m = a.shape[0]
+    offs = coo.col - coo.row
+    uniq, counts = np.unique(offs, return_counts=True)
+    order = np.argsort(-counts)
+    kept = []
+    covered = 0
+    for j in order[:dia_max_offsets]:
+        # marginal test: a diagonal stored densely costs m slots; one
+        # whose own fill m/count exceeds the limit belongs in the ELL
+        # remainder (counts sorted desc, so stop at the first such)
+        if m > dia_fill_limit * counts[j]:
+            break
+        if (len(kept) + 1) * m > dia_fill_limit * (covered + counts[j]):
+            break
+        kept.append(uniq[j])
+        covered += counts[j]
+    if not kept or covered < 0.5 * max(coo.nnz, 1):
+        return None
+    kept_mask = np.isin(offs, kept)
+    if (~kept_mask).sum() == 0:
+        return None  # pure DIA, no remainder
+    dia_part = sp.coo_matrix(
+        (coo.data[kept_mask], (coo.row[kept_mask], coo.col[kept_mask])),
+        shape=a.shape)
+    ell_part = sp.coo_matrix(
+        (coo.data[~kept_mask], (coo.row[~kept_mask], coo.col[~kept_mask])),
+        shape=a.shape).tocsr()
+    # remainder must be skinny, or ELL padding defeats the purpose
+    if np.diff(ell_part.indptr).max() > max(
+            8, 2 * coo.nnz // max(m, 1)):
+        return None
+    return dia_part.tocsr(), ell_part
+
+
+def _hyb_from_scipy(a: sp.csr_matrix, dtype, device, dia_fill_limit: float,
+                    dia_max_offsets: int) -> Optional[HybMatrix]:
+    split = _hyb_split(a, dia_fill_limit, dia_max_offsets)
+    if split is None:
+        return None
+    dia_part, ell_part = split
+    return HybMatrix(_dia_from_scipy(dia_part, dtype, device),
+                     _ell_from_scipy(ell_part, dtype, device), a.shape)
+
+
 def sparse_from_scipy(a: sp.spmatrix, *, fmt: str = "auto",
                       dia_max_offsets: int = 96, dia_fill_limit: float = 8.0,
-                      dtype=None, device=None, **tags) -> SparseOperator:
+                      dtype=None, device=None, wide_s: bool = False,
+                      **tags) -> SparseOperator:
     """Build a SparseOperator on ``device`` (default ``cuda``) from a
     scipy sparse matrix.
 
-    fmt: 'auto' | 'dia'.  'auto' picks DIA when the matrix has at most
-    ``dia_max_offsets`` distinct diagonals *and* the DIA fill (d*m values
-    stored for nnz actual entries) stays under ``dia_fill_limit`` - the
-    JAX package's rule.  Where that rule would fall back to HYB or ELL,
-    and for fmt='hyb'/'ell', this raises ``NotImplementedError``: those
-    formats have no kernel in the port yet, and a quiet plain apply on
-    the card would hide that.
+    fmt: 'auto' | 'dia' | 'hyb' | 'ell'.  'auto' picks DIA when the
+    matrix has at most ``dia_max_offsets`` distinct diagonals *and* the
+    DIA fill (d*m values stored for nnz actual entries) stays under
+    ``dia_fill_limit``; else HYB when a subset of diagonals covers most
+    of the nnz and leaves a skinny remainder; else ELL - the JAX
+    package's rule.  A HYB whose transpose does not split takes an ELL
+    transpose payload.
+
+    ``wide_s=True`` (the JAX package's dense-window tensor-core payload
+    for wide multivectors, TPU kernel #7) is not ported and raises.
     """
+    if wide_s:
+        raise NotImplementedError(
+            "wide_s=True (the dense-window payload of TPU kernel #7) is not "
+            "ported yet: ROADMAP Queue 1, the wide-s kernel")
     if dtype is None:
         dtype = torch.get_default_dtype()
     dev = resolve_device(device)
@@ -224,22 +431,31 @@ def sparse_from_scipy(a: sp.spmatrix, *, fmt: str = "auto",
         n_offsets = len(np.unique(coo.col - coo.row))
         dia_ok = (n_offsets <= dia_max_offsets
                   and n_offsets * m <= dia_fill_limit * max(nnz, 1))
-        if not dia_ok:
-            raise NotImplementedError(
-                _ELL_TODO + f"this matrix has {n_offsets} distinct "
-                f"diagonals (fill {n_offsets * m / max(nnz, 1):.1f}x), so "
-                f"'auto' would pick HYB or ELL; pass fmt='dia' to force DIA")
-        fmt = "dia"
-    if fmt in ("hyb", "ell"):
-        raise NotImplementedError(_ELL_TODO + f"fmt={fmt!r} was asked for")
-    if fmt != "dia":
+        fmt = "dia" if dia_ok else "hyb"
+    if fmt not in ("dia", "hyb", "ell"):
         raise ValueError(f"unknown sparse format {fmt!r}")
     sym = bool(tags.get("is_symmetric", False))
     if not sym and nnz and m == n and (a != a.T).nnz == 0:
         sym = True
         tags["is_symmetric"] = True
-    fwd = _dia_from_scipy(a, dtype, dev)
-    bwd = None if sym else _dia_from_scipy(a.T.tocsr(), dtype, dev)
+    fwd = bwd = None
+    if fmt == "dia":
+        fwd = _dia_from_scipy(a, dtype, dev)
+        bwd = None if sym else _dia_from_scipy(a.T.tocsr(), dtype, dev)
+    elif fmt == "hyb":
+        fwd = _hyb_from_scipy(a, dtype, dev, dia_fill_limit,
+                              dia_max_offsets)
+        if fwd is None:
+            fmt = "ell"
+        elif not sym:
+            at = a.T.tocsr()
+            bwd = _hyb_from_scipy(at, dtype, dev, dia_fill_limit,
+                                  dia_max_offsets)
+            if bwd is None:  # the transpose split can fail on its own
+                bwd = _ell_from_scipy(at, dtype, dev)
+    if fmt == "ell":
+        fwd = _ell_from_scipy(a, dtype, dev)
+        bwd = None if sym else _ell_from_scipy(a.T.tocsr(), dtype, dev)
     return SparseOperator(fwd, bwd, nnz=nnz, **tags)
 
 

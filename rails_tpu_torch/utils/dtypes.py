@@ -28,11 +28,30 @@ __all__ = [
 ]
 
 
+def _fp32_switches():
+    """Every ``fp32_precision`` switch of ``torch.backends`` (the
+    per-backend API of recent PyTorch; empty where it is absent)."""
+    b = torch.backends
+    objs = (b, b.cuda.matmul, b.cudnn, getattr(b.cudnn, "conv", None),
+            getattr(b.cudnn, "rnn", None), b.mkldnn,
+            getattr(b.mkldnn, "matmul", None),
+            getattr(b.mkldnn, "conv", None), getattr(b.mkldnn, "rnn", None))
+    return [o for o in objs
+            if o is not None and hasattr(o, "fp32_precision")]
+
+
 @contextlib.contextmanager
 def full_precision():
     """Run the enclosed block with TF32 off for matmuls and cuDNN and the
     float32 matmul precision at "highest"; restore the caller's settings
-    on exit."""
+    on exit.
+
+    Where PyTorch also has per-backend ``fp32_precision`` switches, those
+    are saved and put back exactly after the legacy switches: setting
+    the matmul precision back through the legacy setter alone would also
+    turn switches the caller never set (mkldnn's matmul), and PyTorch's
+    getters raise once the switches disagree."""
+    saved = [(o, o.fp32_precision) for o in _fp32_switches()]
     old = (torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32,
            torch.get_float32_matmul_precision())
@@ -45,6 +64,8 @@ def full_precision():
         torch.set_float32_matmul_precision(old[2])
         torch.backends.cuda.matmul.allow_tf32 = old[0]
         torch.backends.cudnn.allow_tf32 = old[1]
+        for obj, value in saved:
+            obj.fp32_precision = value
 
 
 def highest_precision(fn):

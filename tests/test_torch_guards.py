@@ -75,6 +75,32 @@ def test_precision_policy_pins_full_f32():
         torch.backends.cuda.matmul.allow_tf32 = before
 
 
+def test_precision_policy_after_legacy_tf32_switch():
+    """A caller who turned TF32 on through the legacy switch leaves the
+    legacy and per-backend settings disagreeing, where PyTorch's legacy
+    getter raises; ``full_precision`` must still pin full f32 and give
+    the caller's settings back unchanged."""
+    from rails_tpu_torch.utils.dtypes import (
+        _fp32_switches, full_precision, precision_flags)
+
+    saved = [(o, o.fp32_precision) for o in _fp32_switches()]
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        state = [o.fp32_precision for o in _fp32_switches()]
+        for _ in range(2):
+            with full_precision():
+                assert precision_flags()["float32_matmul_precision"] == \
+                    "highest"
+                assert not torch.backends.cuda.matmul.allow_tf32
+            assert [o.fp32_precision for o in _fp32_switches()] == state
+            assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+        for obj, value in saved:
+            obj.fp32_precision = value
+
+
 class TestInterop:
     def test_options_round_trip(self):
         jopt = rails_tpu.SolverOptions(tol=1e-7, expand=4, restart_size=40,

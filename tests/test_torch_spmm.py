@@ -130,16 +130,25 @@ class TestFormats:
 
     @pytest.mark.parametrize("fmt", ["ell", "hyb"])
     def test_ell_and_hyb_raise(self, fmt):
-        with pytest.raises(NotImplementedError, match="ELL/HYB"):
-            sparse_from_scipy(laplacian2_sparse(8), fmt=fmt, device="cpu")
+        # ELL and HYB are ported; what raises is the JAX package's
+        # dense-window payload for wide multivectors (TPU kernel #7)
+        op = sparse_from_scipy(laplacian2_sparse(8), fmt=fmt,
+                               dtype=torch.float64, device="cpu")
+        assert op.format == jax_sparse(laplacian2_sparse(8), fmt=fmt).format
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sparse_from_scipy(laplacian2_sparse(8), fmt=fmt, wide_s=True,
+                              device="cpu")
 
     def test_auto_raises_where_jax_picks_ell(self, rng):
+        # the port now picks ELL where the JAX package does; only the
+        # unported wide-s payload raises
         from rails_tpu_torch.models.problems import random_sparse
 
         a = sp.csr_matrix(random_sparse(rng, 100))
         assert jax_sparse(a).format == "ell"
-        with pytest.raises(NotImplementedError, match="ELL/HYB"):
-            sparse_from_scipy(a, device="cpu")
+        assert sparse_from_scipy(a, device="cpu").format == "ell"
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sparse_from_scipy(a, wide_s=True, device="cpu")
 
     def test_dia_shape_checked(self):
         with pytest.raises(ValueError, match="DIA data shape"):
