@@ -34,7 +34,7 @@ exits nonzero and never prints the last line):
               power iteration on the host) <= 2 tol, and must have
               launched the DIA kernel.
 7. cli_schur - the reference's main-program path through the port's CLI: the
-              side-256 Laplacian DAE (n=65536, a third of M's diagonal
+              side-192 Laplacian DAE (n=36864, a third of M's diagonal
               zero) written as A.mtx/B.mtx/M.mtx, then
               ``rails_tpu_torch.cli.main([dir, "--x64", "--params", p])``:
               Schur reduction (A12/A21/A22 in ELL, A11 by dense LU), the
@@ -44,9 +44,38 @@ exits nonzero and never prints the last line):
               (host, A11 by scipy splu) <= 2 tol, write V/T and read them
               back equal, agree with scipy's eigsh on the leading
               eigenvalue to 1e-6, and launch the ELL kernel.
+8. compare_wide - the dense-window kernel against its plain version on
+              the card (max|dy| <= 1e-5 max|y|), and both against the
+              exact float64 ELL product within the JAX tests' bounds
+              (8e-5 max|y| at 3 passes, 5e-7 at 6): the continuation
+              Jacobian (side 128) at s = 192, 200, 256 and 3 and 6
+              passes; the JAX bench's ELL geometry at s = 192 (its 6-pass
+              planes must be refused by the 4 GB cap); a rectangular
+              matrix with empty rows, window built at min_s = 1, at
+              s = 3 and 67; one apply through the operator's dispatch.
+9. timing_wide - the wide kernel's times beside its bound (bytes over
+              3.35 TB/s or its operations over the bf16 peak), its plain
+              version, the ELL kernel on the same payload and s, and
+              torch.sparse.mm: the continuation shape at s = 200 (6
+              passes, as continuation_wide runs it, and 3) and the
+              bench geometry at s = 192 and 256 (3 passes).
+10. refined_acc - bench.py::phase_accuracy at n = 8192: the single
+              float32 solve, then solve_refined with compensated
+              reductions to a float64 true residual <= 1.1e-8.
+11. refined_scale - bench.py::phase_scale at n = 65536: solve_refined,
+              float32, compensated, converged with an f64 true residual
+              <= 2 tol; the wall split into stage solves and the host's
+              residual compression.
+12. continuation_wide - three steps of bench.py::phase_continuation's
+              Jacobian family at side 128 in ELL with the dense-window
+              payload, float32, compensated: every step converged with an
+              f64 true residual <= 2 tol, warm steps faster than the cold
+              one, each entering with >= 192 carried columns and
+              launching the wide kernel.
 
 Then the kernel table as one JSON line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}.  ``--only`` runs env, build and the named
+phases of 8-12 and stops there (no kernel table, no last line).
 """
 
 import contextlib
@@ -66,6 +95,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}  # outside tensor cores
+PEAK_BF16_FLOPS = 989e12    # dense bf16 on the tensor cores
 TOL = {"float32": 1e-5, "float64": 1e-12}
 
 
@@ -104,9 +134,9 @@ def dia_work(dia, s, itemsize):
     return nbytes, 2 * terms * s
 
 
-def bound_ms(nbytes, flops, dtype_name):
+def bound_ms(nbytes, flops, dtype_name, peak=None):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_ops = flops / (PEAK_FLOPS[dtype_name] if peak is None else peak)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -172,10 +202,12 @@ def n_copies(per_set):
 
 
 def time_kernel(torch, label, kernel, plain, sets, nbytes, flops, name,
-                reps):
+                reps, lib_sets=None, peak=None):
     """Check ``kernel`` against ``plain`` on the first set, then time the
     kernel (device time and time per call), the plain version and
-    torch.sparse.mm on CSR copies, beside the bound."""
+    torch.sparse.mm on CSR copies (of each set's payload, unless
+    ``lib_sets`` are given), beside the bound (``peak``: the operations'
+    peak rate, default the dtype's outside the tensor cores)."""
     y = kernel(*sets[0])
     ref = plain(*sets[0])
     err = (y - ref).abs().max().item()
@@ -185,9 +217,10 @@ def time_kernel(torch, label, kernel, plain, sets, nbytes, flops, name,
     k_ms = time_ms(torch, kernel, sets, reps)
     call_ms = time_ms(torch, kernel, sets, reps, backlog=False)
     p_ms = time_ms(torch, plain, sets, max(3, reps // 10))
-    lib_sets = [(csr_of(torch, payload), x) for payload, x in sets]
+    if lib_sets is None:
+        lib_sets = [(csr_of(torch, payload), x) for payload, x in sets]
     l_ms = time_ms(torch, torch.sparse.mm, lib_sets, max(3, reps // 4))
-    b_ms, b_by = bound_ms(nbytes, flops, name)
+    b_ms, b_by = bound_ms(nbytes, flops, name, peak)
     return {"case": label, "dtype": name, "input_copies": len(sets),
             "max_abs_err": err, "ms": k_ms, "us": k_ms * 1e3,
             "call_ms": call_ms, "plain_ms": p_ms, "library_ms": l_ms,
@@ -210,9 +243,10 @@ def timing_case(torch, spmm, label, m, offsets, s, dtype, gen, reps):
     return row
 
 
-def factored_residual(av, mv, b, t64, rng):
+def factored_residual(av, mv, b, t64, rng, iters=60):
     """||AV T MV' + MV T AV' + B B'||_2 / ||B'B||_2 in float64 on the host,
-    by power iteration on the factored residual (bench.py:829-851)."""
+    by ``iters`` steps of power iteration on the factored residual
+    (bench.py:829-851)."""
     def r_apply(x):
         return b @ (b.T @ x) + av @ (t64 @ (mv.T @ x)) \
             + mv @ (t64 @ (av.T @ x))
@@ -220,7 +254,7 @@ def factored_residual(av, mv, b, t64, rng):
     x = rng.standard_normal((av.shape[0], 1))
     x /= np.linalg.norm(x)
     lam = 0.0
-    for _ in range(60):
+    for _ in range(iters):
         y = r_apply(x)
         lam = float(np.linalg.norm(y))
         if lam == 0.0:
@@ -367,17 +401,20 @@ def host_schur(a, md, b, v, t):
     return res, float(lam[0])
 
 
+CLI_SIDE = 192   # n = 36,864; side 256 (n = 65,536) ran 220-320 s
+
+
 def run_cli_schur(torch, spmm, em, tol):
-    """The reference's main-program path through the port's CLI on the side-256
-    Laplacian DAE at float64; counts reset just before ``cli.main``, read
-    just after."""
+    """The reference's main-program path through the port's CLI on the
+    side-192 Laplacian DAE at float64; counts reset just before
+    ``cli.main``, read just after."""
     import scipy.sparse as sp
 
     from rails_tpu_torch import cli
     from rails_tpu_torch import io as rio
 
     tmod = importlib.import_module("rails_tpu_torch.timer")
-    a, md, b = laplacian_dae(256)
+    a, md, b = laplacian_dae(CLI_SIDE)
     params = {"Lyapunov Solver": {"Tolerance": tol,
                                   "Maximum iterations": 3000,
                                   "Expand size": 8, "Restart size": 160,
@@ -512,39 +549,303 @@ def run_solve(torch, rt, spmm, label, side, dtype, opts, rounded_inputs):
     return out, (lap, md, b, aop, mop, solver)
 
 
-def main():
-    t_start = time.perf_counter()
-    import torch
+def continuation_jacobian(side, theta):
+    """bench.py::phase_continuation's Jacobian family (:620-630): the 2D
+    Laplacian with its diagonal shifted by -theta."""
+    import scipy.sparse as sp
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("chip_smoke.py needs a CUDA device: "
-                           "torch.cuda.is_available() is False")
-    import rails_tpu_torch as rt
-    from rails_tpu_torch import _build
-    from rails_tpu_torch.sparse import ell_spmm as em
-    from rails_tpu_torch.sparse import spmm
+    return (sp.kron(sp.eye(side), sp.diags([1.0, -4.0 - theta, 1.0],
+                                           [-1, 0, 1], (side, side)))
+            + sp.kron(sp.diags([1.0, 1.0], [-1, 1], (side, side)),
+                      sp.eye(side))).tocsr()
+
+
+WIDE_BOUND = {3: 8e-5, 6: 5e-7}   # tests/test_sparse.py:549, 568
+
+
+def compare_wide_case(torch, wm, em, label, ell, wide, s, gen):
+    """The wide kernel against its plain version (1e-5 max|y|), and both
+    against the exact float64 product of the float32 ELL payload (the
+    JAX tests' bounds for the number of passes)."""
+    from rails_tpu_torch.sparse.formats import EllMatrix
+
+    x = random_x(torch, ell.shape[1], s, torch.float32, gen)
+    y = wm.wide_spmm(wide, x)
+    torch.cuda.synchronize()
+    ref = wm.wide_spmm_reference(wide, x)
+    exact = em.ell_spmm_reference(
+        EllMatrix(ell.indices, ell.values.double(), ell.shape), x.double())
+    scale = ref.abs().max().item()
+    escale = exact.abs().max().item()
+    row = {"case": label, "m": ell.shape[0], "n": ell.shape[1],
+           "w": wide.w, "passes": wide.passes, "s": s,
+           "max_abs_err": (y - ref).abs().max().item(), "max_abs_y": scale,
+           "kernel_vs_exact": (y.double() - exact).abs().max().item(),
+           "plain_vs_exact": (ref.double() - exact).abs().max().item(),
+           "max_abs_exact": escale}
+    bound = WIDE_BOUND[wide.passes]
+    row["ok"] = (row["max_abs_err"] <= 1e-5 * scale
+                 and row["kernel_vs_exact"] <= bound * escale
+                 and row["plain_vs_exact"] <= bound * escale)
+    if not row["ok"]:
+        raise AssertionError(f"wide_spmm disagrees: {row}")
+    return row
+
+
+def timing_wide_case(torch, wm, em, label, ell, wide, s, gen, reps):
+    """Times of the wide kernel at ``s`` columns beside its bound (bytes
+    over 3.35 TB/s or its bf16 operations over 989 TFLOP/s), its plain
+    version, the ELL kernel on the same payload and torch.sparse.mm,
+    rotating through copies of the payloads and of x."""
+    from rails_tpu_torch.sparse.formats import EllMatrix
+    from rails_tpu_torch.sparse.wide_spmm import WideWindow
+
+    nbytes, flops = wm.wide_work(wide, s)
+    ell_bytes, ell_flops = ell_work(ell, s, 4)
+    copies = n_copies(nbytes + ell_bytes)
+
+    def clone_wide(wd):
+        return WideWindow(wd.c0.clone(), wd.p_hi.clone(), wd.p_lo.clone(),
+                          None if wd.p3 is None else wd.p3.clone(), wd.w,
+                          wd.shape, wd.min_s)
+
+    trips = [(wide if i == 0 else clone_wide(wide),
+              EllMatrix(ell.indices.clone(), ell.values.clone(), ell.shape),
+              random_x(torch, ell.shape[1], s, torch.float32, gen))
+             for i in range(copies)]
+    sets = [(wd, x) for wd, _, x in trips]
+    row = time_kernel(torch, label, wm.wide_spmm, wm.wide_spmm_reference,
+                      sets, nbytes, flops, "float32", reps,
+                      lib_sets=[(csr_of(torch, e), x) for _, e, x in trips],
+                      peak=PEAK_BF16_FLOPS)
+    ell_sets = [(e, x) for _, e, x in trips]
+    ell_ms = time_ms(torch, em.ell_spmm, ell_sets, reps)
+    ell_b_ms, ell_b_by = bound_ms(ell_bytes, ell_flops, "float32")
+    row.update({"m": ell.shape[0], "n": ell.shape[1], "w": wide.w,
+                "passes": wide.passes, "s": s, "ell_ms": ell_ms,
+                "ell_bound_ms": ell_b_ms, "ell_bound_by": ell_b_by,
+                "wide_over_ell": row["ms"] / ell_ms})
+    return row
+
+
+def run_refined_acc(torch, rt, spmm):
+    """bench.py::phase_accuracy (:467-591) at its real size: the n = 8192
+    stable tridiagonal from default_rng(0) in DIA (is_hurwitz, so the
+    projected solves take the sign route), B (n, 4) float32; first the
+    single float32 solve (its true residual recorded, not checked), then
+    solve_refined with compensated reductions, whose float64 true
+    residual must reach 1.1e-8 (the bench's acc_target_met rule)."""
+    import scipy.sparse as sp
+
+    n = 8192
+    rng = np.random.default_rng(0)
+    q = lambda x: np.round(x * 1024) / 1024  # noqa: E731  exact in f32
+    main = q(-2.0 - rng.uniform(0, 1, n))
+    up = q(0.4 * rng.uniform(-1, 1, n - 1))
+    lo = q(0.4 * rng.uniform(-1, 1, n - 1))
+    a_sp = sp.diags([lo, main, up], [-1, 0, 1]).tocsr()
+    b32 = np.asarray(rng.uniform(-1, 1, (n, 4)), np.float32)
+    b64 = b32.astype(np.float64)
+    aop = rt.sparse_from_scipy(a_sp, fmt="dia", dtype=torch.float32,
+                               is_hurwitz=True)
+    kw = dict(tol=1e-8, dtype=torch.float32, maxit=100, expand=4)
+
+    def true_rel(v, t):
+        v64 = v.detach().cpu().double().numpy()
+        t64 = t.detach().cpu().double().numpy()
+        return factored_residual(a_sp @ v64, v64, b64, t64, rng, 200)
+
+    out = {"phase": "refined_acc", "n": n, "tol": 1e-8, "dtype": "float32"}
+    for label, fn, extra in (("single", rt.solve, {}),
+                             ("refined", rt.solve_refined,
+                              {"precision": "compensated"})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        spmm.dia_spmm.launches = 0
+        t0 = time.perf_counter()
+        v, t, info = fn(aop, b32, **kw, **extra)
+        torch.cuda.synchronize()
+        out.update({f"{label}_wall_s": time.perf_counter() - t0,
+                    f"{label}_dia_spmm_launches": spmm.dia_spmm.launches,
+                    f"{label}_max_memory_allocated":
+                        torch.cuda.max_memory_allocated(),
+                    f"{label}_iters": info.iter,
+                    f"{label}_res_est": float(info.res),
+                    f"{label}_converged": bool(info.converged),
+                    f"{label}_rank": int(v.shape[1]),
+                    f"{label}_res_true_f64": true_rel(v, t)})
+    out.update({"refined_stages": len(info.stages),
+                "refined_stage_iters": [s.iter for s in info.stages],
+                "bench_r05_refined_res_true_tpu": 7.53145e-09,
+                "target_met": bool(out["refined_res_true_f64"] <= 1.1e-8)})
+    if not out["target_met"]:
+        raise AssertionError(f"refined_acc missed 1.1e-8: {out}")
+    if out["refined_dia_spmm_launches"] <= 0:
+        raise AssertionError(f"refined_acc never launched dia_spmm: {out}")
+    return out
+
+
+def run_refined_scale(torch, rt, spmm, refine_mod):
+    """bench.py::phase_scale (:782-810) at its real size: the side-256
+    Laplacian (n = 65536) in DIA, M = diag(U[0.5, 1.5]), B (n, 8) float32,
+    solve_refined with compensated reductions to tol 1e-4.  It must
+    converge with a float64 true residual <= 2 tol.  The wall is split
+    into the stage solves and the host's residual compression
+    (``residual_factor``, timed by wrapping it for this run)."""
+    from rails_tpu_torch.models.problems import laplacian2_sparse
+
+    side, tol = 256, 1e-4
+    n = side * side
+    rng = np.random.default_rng(0)
+    lap = laplacian2_sparse(side)
+    md = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    b32 = np.asarray(rng.uniform(0, 1, (n, 8)), np.float32)
+    aop = rt.sparse_from_scipy(lap, fmt="dia", dtype=torch.float32,
+                               is_symmetric=True)
+    mop = rt.DiagonalOperator(torch.from_numpy(md).to("cuda"))
+    factor_s = []
+    factor = refine_mod.residual_factor
+
+    def timed_factor(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = factor(*args, **kwargs)
+        factor_s.append(time.perf_counter() - t0)
+        return res
+
+    stage_walls = []
+
+    def progress(it, wall, res):
+        # each stage's clock starts at 0
+        if not stage_walls or wall < stage_walls[-1]:
+            stage_walls.append(wall)
+        stage_walls[-1] = wall
+
+    refine_mod.residual_factor = timed_factor
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        spmm.dia_spmm.launches = 0
+        t0 = time.perf_counter()
+        v, t, info = rt.solve_refined(
+            aop, b32, mop, tol=tol, stage_tol=5e-3, dtype=torch.float32,
+            maxit=1500, expand=8, restart_size=160, reduced_size=80,
+            timevec_chunk=50, precision="compensated", progress=progress)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        refine_mod.residual_factor = factor
+    launches = spmm.dia_spmm.launches
+    res_true = true_residual(lap, md.astype(np.float64),
+                             b32.astype(np.float64), v, t, rng)
+    out = {"phase": "refined_scale", "n": n, "tol": tol, "dtype": "float32",
+           "converged": bool(info.converged), "res_est": float(info.res),
+           "stages": len(info.stages),
+           "stage_iters": [s.iter for s in info.stages], "iters": info.iter,
+           "bench_r05_iters_tpu": 746, "rank": int(v.shape[1]),
+           "bench_r05_rank_tpu": 199, "wall_s": wall,
+           "stage_solve_walls_s": stage_walls,
+           "residual_factor_walls_s": factor_s,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "dia_spmm_launches": launches, "res_true_f64": res_true}
+    if not out["converged"]:
+        raise AssertionError(f"refined_scale did not converge: {out}")
+    if res_true > 2 * tol:
+        raise AssertionError(f"refined_scale true residual above 2 tol: "
+                             f"{out}")
+    if launches <= 0:
+        raise AssertionError(f"refined_scale never launched dia_spmm: {out}")
+    return out
+
+
+CONT_SIDE = 128          # n = 16384, four times the JAX bench's n
+# 6 passes: with 3 (about 1.5e-5 relative per apply) the first warm
+# step's Gram block carried enough error that its f64 true residual
+# ended at 3.5e-4 against a Lanczos estimate of 9.6e-5 (tol 1e-4)
+CONT_WIDE_PASSES = 6
+
+
+def run_continuation_wide(torch, rt, em, wm):
+    """bench.py::phase_continuation (:594-664) at side 128: the Jacobians
+    theta = 0, 0.05, 0.1 in ELL with the dense-window payload, float32,
+    M and B as at :617-618, through ContinuationSolver with compensated
+    reductions.  Counts are set to 0 just before the first step and read
+    after each.  Every step must converge with a float64 true residual
+    <= 2 tol; the warm steps must take fewer iterations than the cold one
+    on average, enter with >= 192 carried columns and launch wide_spmm."""
+    side, tol = CONT_SIDE, 1e-4
+    n = side * side
+    rng = np.random.default_rng(0)
+    md = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    b32 = rng.uniform(0, 1, (n, 8)).astype(np.float32)
+    # restart_tolerance 0: restarts keep reduced_size columns, not only
+    # the eigenvalues of T above 1e-3 tol relative (rank 54 here), so the
+    # carried basis holds 200 columns and a warm step's first Gram block
+    # applies A to that many, the wide kernel's dispatch width
+    cont = rt.ContinuationSolver(
+        b32, rt.DiagonalOperator(torch.from_numpy(md).to("cuda")), tol=tol,
+        dtype=torch.float32, expand=6, restart_size=400, reduced_size=200,
+        restart_tolerance=0.0, maxit=1000, precision="compensated")
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wm.wide_spmm.launches = 0
+    em.ell_spmm.launches = 0
+    for theta in (0.0, 0.05, 0.1):
+        a = continuation_jacobian(side, theta)
+        aop = rt.sparse_from_scipy(a, fmt="ell", wide_s=True,
+                                   wide_passes=CONT_WIDE_PASSES,
+                                   is_symmetric=True, dtype=torch.float32)
+        if aop.fwd.wide is None:
+            raise AssertionError("continuation Jacobian has no wide window")
+        k0 = 0 if cont._prev_space is None else int(cont._prev_space.shape[1])
+        w0, e0 = wm.wide_spmm.launches, em.ell_spmm.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, t, info = cont.step(aop)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps.append({
+            "theta": theta, "k0": k0, "iters": info.iter,
+            "converged": bool(info.converged), "res_est": float(info.res),
+            "rank": int(v.shape[1]), "wall_s": wall,
+            "wide_spmm_launches": wm.wide_spmm.launches - w0,
+            "ell_spmm_launches": em.ell_spmm.launches - e0,
+            "res_true_f64": true_residual(a, md.astype(np.float64),
+                                          b32.astype(np.float64), v, t,
+                                          rng)})
+    warm = steps[1:]
+    out = {"phase": "continuation_wide", "n": n, "tol": tol,
+           "dtype": "float32", "wide_passes": CONT_WIDE_PASSES,
+           "steps": steps, "cold_iters": steps[0]["iters"],
+           "warm_iters_mean": sum(s["iters"] for s in warm) / len(warm),
+           "cold_wall_s": steps[0]["wall_s"],
+           "warm_wall_mean_s": sum(s["wall_s"] for s in warm) / len(warm),
+           "wide_spmm_launches": wm.wide_spmm.launches,
+           "ell_spmm_launches": em.ell_spmm.launches,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    bad = [s for s in steps
+           if not s["converged"] or s["res_true_f64"] > 2 * tol]
+    if bad:
+        raise AssertionError(f"continuation_wide step failed: {out}")
+    if out["warm_iters_mean"] >= out["cold_iters"]:
+        raise AssertionError(f"continuation_wide warm steps not faster: "
+                             f"{out}")
+    if any(s["k0"] < 192 or s["wide_spmm_launches"] < 1 for s in warm):
+        raise AssertionError(f"continuation_wide warm step without a wide "
+                             f"apply at >= 192 columns: {out}")
+    if out["ell_spmm_launches"] <= 0:
+        raise AssertionError(f"continuation_wide never launched ell_spmm: "
+                             f"{out}")
+    return out
+
+
+def run_earlier_phases(torch, rt, spmm, em, smi, gen):
+    """Phases 3-7 (the DIA and ELL kernels, the two solves, the CLI's
+    Schur path), each emitting its line; returns, per kernel, its
+    launches on the main path, its compare error and its timing row."""
     from rails_tpu_torch.sparse.formats import sparse_from_scipy
-    from rails_tpu_torch.utils.dtypes import full_precision, precision_flags
 
-    # ---- 1. env
-    t0 = time.perf_counter()
-    smi = nvidia_smi_line()
-    with full_precision():
-        flags = precision_flags()
-    emit({"phase": "env", "nvidia_smi": smi,
-          "device": torch.cuda.get_device_name(0),
-          "device_count": torch.cuda.device_count(),
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "python": sys.version.split()[0], "precision_flags": flags,
-          "wall_s": time.perf_counter() - t0})
-
-    # ---- 2. build
-    t0 = time.perf_counter()
-    report = _build.build_all()
-    emit({"phase": "build", "kernels": report,
-          "wall_s": time.perf_counter() - t0})
-
-    gen = torch.Generator("cuda").manual_seed(0)
     f32, f64 = torch.float32, torch.float64
 
     # ---- 3. compare
@@ -683,27 +984,194 @@ def main():
     out_cli = run_cli_schur(torch, spmm, em, 1e-4)
     out_cli.update({"phase_wall_s": time.perf_counter() - t0})
     emit(out_cli)
+    return {"dia": (main_launches, slice_err, timings[0]),
+            "ell": (out_cli["ell_spmm_launches"], ell_slice_err,
+                    ell_timings[0])}
+
+
+def run_wide_phases(torch, rt, spmm, em, wm, refine_mod, smi, gen, only):
+    """Phases 8-12 (this slice's: the dense-window kernel, the refined
+    solves, the continuation run), each emitting its line, those not in
+    ``only`` skipped (None: all).  Returns the wide kernel's launches on
+    continuation_wide, its compare error and its timing row at the
+    continuation shape (None for a phase that was skipped)."""
+    from rails_tpu_torch.sparse.formats import sparse_from_scipy
+
+    def want(name):
+        return only is None or name in only
+
+    f32 = torch.float32
+    cont = bench = None
+    if want("compare_wide") or want("timing_wide"):
+        # the continuation Jacobian (theta = 0.05: -4.05 needs the lo
+        # plane) and the JAX bench's ELL geometry, float32 ELL on the card
+        cont = sparse_from_scipy(continuation_jacobian(CONT_SIDE, 0.05),
+                                 fmt="ell", dtype=f32).fwd
+        bench = sparse_from_scipy(banded_ell(1 << 21, 1 << 21, 8, 64, 0,
+                                             seed=0), fmt="ell",
+                                  dtype=f32).fwd
+        cont_w = {p: wm.build_wide_window(cont, passes=p) for p in (3, 6)}
+        bench_w = wm.build_wide_window(bench, passes=3)
+
+    # ---- 8. compare the wide kernel
+    wide_err = None
+    if want("compare_wide"):
+        t0 = time.perf_counter()
+        rows = []
+        for passes in (3, 6):
+            for s in (192, 200, 256):
+                rows.append(compare_wide_case(
+                    torch, wm, em, "continuation side 128", cont,
+                    cont_w[passes], s, gen))
+        wide_err = next(r["max_abs_err"] for r in rows
+                        if r["s"] == 200 and r["passes"] == CONT_WIDE_PASSES)
+        rows.append(compare_wide_case(torch, wm, em, "bench m=2^21 L=8",
+                                      bench, bench_w, 192, gen))
+        refused = wm.build_wide_window(bench, passes=6) is None
+        if not refused:
+            raise AssertionError("the bench geometry's 6-pass planes (4.8 "
+                                 "GB) passed the 4 GB cap")
+        odd = sparse_from_scipy(banded_ell(1111, 700, 6, 40, 150, seed=1),
+                                fmt="ell", dtype=f32)
+        for passes in (3, 6):
+            odd_w = wm.build_wide_window(odd.fwd, passes=passes, min_s=1)
+            for s in (3, 67):
+                rows.append(compare_wide_case(
+                    torch, wm, em, "odd: rectangular, empty rows", odd.fwd,
+                    odd_w, s, gen))
+        # an apply through the operator dispatches to the kernel
+        odd.fwd.wide = odd_w
+        before = wm.wide_spmm.launches
+        odd.matmat(random_x(torch, 700, 3, f32, gen))
+        torch.cuda.synchronize()
+        if wm.wide_spmm.launches != before + 1:
+            raise AssertionError("a wide-eligible apply did not launch "
+                                 "wide_spmm")
+        emit({"phase": "compare_wide", "cases": rows, "all_ok": True,
+              "bench_passes6_refused_by_cap": refused,
+              "wall_s": time.perf_counter() - t0})
+
+    # ---- 9. timing of the wide kernel beside the ELL kernel
+    wide_t = None
+    if want("timing_wide"):
+        t0 = time.perf_counter()
+        rows = [
+            timing_wide_case(torch, wm, em, "continuation side 128 s=200",
+                             cont, cont_w[CONT_WIDE_PASSES], 200, gen, 200),
+            timing_wide_case(torch, wm, em, "continuation side 128 s=200",
+                             cont, cont_w[3], 200, gen, 200),
+            timing_wide_case(torch, wm, em, "bench m=2^21 L=8 s=192", bench,
+                             bench_w, 192, gen, 10),
+            timing_wide_case(torch, wm, em, "bench m=2^21 L=8 s=256", bench,
+                             bench_w, 256, gen, 10),
+        ]
+        wide_t = rows[0]
+        emit({"phase": "timing_wide", "cases": rows, "smi": smi,
+              "wall_s": time.perf_counter() - t0})
+    del cont, bench
+    cont_w = bench_w = None
+    torch.cuda.empty_cache()
+
+    # ---- 10-12. refined solves and the continuation run
+    if want("refined_acc"):
+        t0 = time.perf_counter()
+        out = run_refined_acc(torch, rt, spmm)
+        out["phase_wall_s"] = time.perf_counter() - t0
+        emit(out)
+    if want("refined_scale"):
+        t0 = time.perf_counter()
+        out = run_refined_scale(torch, rt, spmm, refine_mod)
+        out["phase_wall_s"] = time.perf_counter() - t0
+        emit(out)
+    launches = None
+    if want("continuation_wide"):
+        t0 = time.perf_counter()
+        out = run_continuation_wide(torch, rt, em, wm)
+        out["phase_wall_s"] = time.perf_counter() - t0
+        launches = out["wide_spmm_launches"]
+        emit(out)
+    return launches, wide_err, wide_t
+
+
+NEW_PHASES = ("compare_wide", "timing_wide", "refined_acc", "refined_scale",
+              "continuation_wide")
+
+
+def parse_only(argv):
+    """``--only a,b``: run env, build and the named phases of NEW_PHASES,
+    then stop without the kernel table and the last line (a debugging
+    aid); None for a full run."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--only":
+        raise SystemExit(f"usage: chip_smoke.py [--only "
+                         f"{','.join(NEW_PHASES)}]")
+    only = set(argv[1].split(","))
+    if not only <= set(NEW_PHASES):
+        raise SystemExit(f"--only takes phases of {NEW_PHASES}")
+    return only
+
+
+def main():
+    t_start = time.perf_counter()
+    only = parse_only(sys.argv[1:])
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device: "
+                           "torch.cuda.is_available() is False")
+    import rails_tpu_torch as rt
+    from rails_tpu_torch import _build
+    from rails_tpu_torch import refine as refine_mod
+    from rails_tpu_torch.sparse import ell_spmm as em
+    from rails_tpu_torch.sparse import spmm
+    from rails_tpu_torch.sparse import wide_spmm as wm
+    from rails_tpu_torch.utils.dtypes import full_precision, precision_flags
+
+    # ---- 1. env
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    with full_precision():
+        flags = precision_flags()
+    emit({"phase": "env", "nvidia_smi": smi,
+          "device": torch.cuda.get_device_name(0),
+          "device_count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0], "precision_flags": flags,
+          "wall_s": time.perf_counter() - t0})
+
+    # ---- 2. build
+    t0 = time.perf_counter()
+    report = _build.build_all()
+    emit({"phase": "build", "kernels": report,
+          "wall_s": time.perf_counter() - t0})
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    earlier = None
+    if only is None:
+        earlier = run_earlier_phases(torch, rt, spmm, em, smi, gen)
+    wide = run_wide_phases(torch, rt, spmm, em, wm, refine_mod, smi, gen,
+                           only)
+    if only is not None:
+        return
 
     # ---- the kernel table, the card, and the last line
-    slice_t = timings[0]
-    ell_t = ell_timings[0]
-    emit({"kernels": [{
-        "name": "dia_spmm", "route": "cuda",
-        "source": "rails_tpu_torch/csrc/dia_spmm.cu",
-        "replaces": "rails_tpu/sparse/spmm.py:75",
-        "launches": main_launches, "max_abs_err": slice_err,
-        "ms": slice_t["ms"], "plain_ms": slice_t["plain_ms"],
-        "bound_ms": slice_t["bound_ms"], "bound_by": slice_t["bound_by"],
-        "library_ms": slice_t["library_ms"]}, {
-        "name": "ell_spmm", "route": "cuda",
-        "source": "rails_tpu_torch/csrc/ell_spmm.cu",
-        "replaces": "rails_tpu/sparse/ell_spmm.py:344",
-        "launches": out_cli["ell_spmm_launches"],
-        "max_abs_err": ell_slice_err,
-        "ms": ell_t["ms"], "plain_ms": ell_t["plain_ms"],
-        "bound_ms": ell_t["bound_ms"], "bound_by": ell_t["bound_by"],
-        "library_ms": ell_t["library_ms"]}],
-        "total_wall_s": time.perf_counter() - t_start})
+    def row(name, source, replaces, launches, err, t):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]}
+
+    wide_row = row("wide_spmm", "rails_tpu_torch/csrc/wide_spmm.cu",
+                   "rails_tpu/sparse/wide_spmm.py:136", *wide)
+    wide_row["ell_ms"] = wide[2]["ell_ms"]
+    emit({"kernels": [
+        row("dia_spmm", "rails_tpu_torch/csrc/dia_spmm.cu",
+            "rails_tpu/sparse/spmm.py:75", *earlier["dia"]),
+        row("ell_spmm", "rails_tpu_torch/csrc/ell_spmm.cu",
+            "rails_tpu/sparse/ell_spmm.py:344", *earlier["ell"]),
+        wide_row], "total_wall_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,14 @@ run on ``cuda`` unless the caller passes ``device="cpu"``; asking for
 ``cuda`` without a card raises.
 
 Ported so far: the operators; the DIA, ELL and HYB formats with their
-CUDA SpMM kernels; the dense projected Lyapunov solvers; the solver; the
-Schur reduction for a singular M; the eigensolvers; MatrixMarket I/O,
-parameter files and the CLI (``python -m rails_tpu_torch.cli``).  It
-imports neither ``jax`` nor ``rails_tpu``.
+CUDA SpMM kernels, and the ELL format's dense-window payload for wide
+multivectors (``wide_s=True``) with its CUDA kernel; the dense projected
+Lyapunov solvers; the solver, in standard and compensated precision; the
+refined driver ``solve_refined`` (staged defect correction to 1e-8 at
+float32); continuation runs with warm starts (``ContinuationSolver``);
+the Schur reduction for a singular M; the eigensolvers; MatrixMarket
+I/O, parameter files and the CLI (``python -m rails_tpu_torch.cli``).
+It imports neither ``jax`` nor ``rails_tpu``.
 """
 
 __version__ = "0.1.0"
@@ -39,7 +43,9 @@ from rails_tpu_torch.core.solver import (  # noqa: F401
     SolveInfo,
     solve,
 )
+from rails_tpu_torch.continuation import ContinuationSolver  # noqa: F401
 from rails_tpu_torch.eigs import eigs, eigs_general  # noqa: F401
+from rails_tpu_torch.refine import RefineInfo, solve_refined  # noqa: F401
 from rails_tpu_torch.schur import SchurReduction, schur_reduce  # noqa: F401
 from rails_tpu_torch.sparse.formats import (  # noqa: F401
     DiaMatrix,

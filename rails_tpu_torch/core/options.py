@@ -2,9 +2,8 @@
 (src/LyapunovSolver.hpp:72-98) and the MATLAB opts struct
 (matlab/RAILSsolver.m:93-254), with the JAX package's own knobs.
 A copy of the JAX package's ``core/options.py``; the port imports nothing
-of that package.  ``compiled=True`` (CUDA graphs) and
-``precision='compensated'`` are options the port does not run yet: the
-solver raises ``NotImplementedError`` for them.
+of that package.  ``compiled=True`` (CUDA graphs) is an option the port
+does not run yet: the solver raises ``NotImplementedError`` for it.
 
 Validation rules mirror the reference's error ids
 (RAILSsolver:InvalidOption etc.).
@@ -101,7 +100,7 @@ class SolverOptions:
                                          # transform kernels (utils/
                                          # compensated.py), restoring ~f64-
                                          # quality Gram/Lanczos/ortho scalars
-                                         # from f32 storage (not ported yet)
+                                         # from f32 storage
     timevec_chunk: int = 8               # compiled=True runs the
                                          # while_loop in chunks of this
                                          # many iterations so timevec has

@@ -19,7 +19,12 @@ Python control flow and its host loop is the only loop: the control
 scalars (k, the iteration counters, the convergence flags) are Python
 values, and each iteration reads the residual estimate back once.
 ``compiled=True`` (the JAX package's single ``while_loop``; CUDA graphs
-here) and ``precision='compensated'`` are not ported yet and raise.
+here) is not ported yet and raises.
+
+``precision='compensated'`` runs every m-length reduction through the
+error-free transforms of ``utils/compensated.py``, as the JAX package
+does: the Gram blocks, residual applies and orthogonalisation products
+through ``gram2``, the Lanczos and per-column norms through ``dot2``.
 
 Random numbers: the solver draws twice per kind of use - the initial
 space (``"init_uniform"``, U[0, 1) mapped to U[-1, 1)) and each Lanczos
@@ -46,6 +51,7 @@ from rails_tpu_torch.linalg import dense_lyap
 from rails_tpu_torch.operators import (
     LinearOperator, as_operator, operator_norm2)
 from rails_tpu_torch.timer import timer
+from rails_tpu_torch.utils.compensated import dot2, gram2
 from rails_tpu_torch.utils.device import as_tensor, resolve_device
 from rails_tpu_torch.utils.dtypes import full_precision
 
@@ -282,10 +288,6 @@ class LyapunovSolver:
                 "compiled=True (one captured graph for the whole loop) is "
                 "not ported yet: ROADMAP, CUDA graphs")
         opt = self.options
-        if opt.precision == "compensated":
-            raise NotImplementedError(
-                "precision='compensated' is not ported yet: ROADMAP, the "
-                "refinement slice (utils/compensated.py)")
         m = self.A.shape[0]
         with full_precision():
             with timer("Solver", "init"):
@@ -595,8 +597,16 @@ class LyapunovSolver:
 
     # -------------------- Gram update --------------------
     def _tdot(self, x, w):
-        """x.T @ w, reducing over the long axis m."""
+        """x.T @ w, reducing over the long axis m (compensated: gram2)."""
+        if self.options.precision == "compensated":
+            return gram2(x, w)
         return x.T @ w
+
+    def _vdot(self, x, w):
+        """The scalar x[:, 0] . w[:, 0] (compensated: dot2)."""
+        if self.options.precision == "compensated":
+            return dot2(x[:, 0], w[:, 0])
+        return (x.T @ w)[0, 0]
 
     def _sgn(self, x):
         """Insert the signed middle factor: B S B' instead of B B'."""
@@ -705,12 +715,12 @@ class LyapunovSolver:
         for j in range(L):
             qbuf[:, j] = q[:, 0]
             y = self._resid_apply(st, ctx, q)
-            alpha = (y.T @ q)[0, 0]
+            alpha = self._vdot(y, q)
             y = y - alpha * q - beta_prev * q_prev
             if opt.lanczos_reorth:
                 # full reorthogonalization (2 m*L GEMMs per step)
                 y = y - qbuf @ self._tdot(qbuf, y)
-            beta = torch.sqrt(torch.clamp((y.T @ y)[0, 0], min=0.0))
+            beta = torch.sqrt(torch.clamp(self._vdot(y, y), min=0.0))
             scale = torch.maximum(scale, torch.abs(alpha) + beta)
             valid_next = valid & (beta > breakdown * scale)
             alphas.append(torch.where(valid, alpha, zero))
@@ -856,7 +866,7 @@ class LyapunovSolver:
         flags = []
         for i in range(s_slot):
             w = wraw[:, i:i + 1]
-            n0 = torch.sqrt(torch.clamp((w.T @ w)[0, 0], min=0.0))
+            n0 = torch.sqrt(torch.clamp(self._vdot(w, w), min=0.0))
             w = w / torch.where(n0 > 0, n0, one)
             for _ in range(2):  # two CGS passes
                 if ns is not None:
@@ -865,9 +875,9 @@ class LyapunovSolver:
                 w = w - wacc @ tdot(wacc, prep(ctx, w))
             if ctx.mortho:
                 n1 = torch.sqrt(torch.clamp(
-                    (w.T @ self.M.matmat(w))[0, 0], min=0.0))
+                    self._vdot(w, self.M.matmat(w)), min=0.0))
             else:
-                n1 = torch.sqrt(torch.clamp((w.T @ w)[0, 0], min=0.0))
+                n1 = torch.sqrt(torch.clamp(self._vdot(w, w), min=0.0))
             ok = (n1 > drop_tol) & (n0 > 0)
             w = torch.where(ok, w / torch.where(n1 > 0, n1, one), zero)
             wacc[:, i] = w[:, 0]

@@ -19,11 +19,13 @@ from rails_tpu_torch.core.options import SolverOptions
 from rails_tpu_torch.operators import DenseOperator, DiagonalOperator
 from rails_tpu_torch.sparse.formats import (
     DiaMatrix, EllMatrix, HybMatrix, SparseOperator)
+from rails_tpu_torch.sparse.wide_spmm import (
+    CHUNK, MIN_S_DEFAULT, WideWindow)
 from rails_tpu_torch.utils.device import as_tensor, resolve_device
 
 __all__ = ["dia_payload", "ell_payload", "hyb_payload", "sparse_operator",
            "diagonal_operator", "dense_operator", "rhs", "solver_options",
-           "restart_data"]
+           "restart_data", "wide_window"]
 
 # SolverOptions fields that carry an array (moved to the device) and the
 # derived fields __post_init__ sets (not constructor arguments)
@@ -42,14 +44,48 @@ def dia_payload(data, offsets: Sequence[int], shape: Tuple[int, int], *,
 
 
 def ell_payload(indices, values, shape: Tuple[int, int], *, device=None,
-                dtype=None) -> EllMatrix:
+                dtype=None, wide: Optional[WideWindow] = None) -> EllMatrix:
     """An ``EllMatrix`` from the JAX package's ELL payload fields
     ``indices`` (m, L), ``values`` (m, L) and ``shape`` (its windowed
-    ``well`` payload has no counterpart and is not taken)."""
+    ``well`` payload has no counterpart and is not taken), with the
+    dense-window payload ``wide`` (``wide_window``) when given."""
     dev = resolve_device(device)
     return EllMatrix(as_tensor(np.asarray(indices, np.int32), dev),
                      as_tensor(np.asarray(values), dev, dtype),
-                     (int(shape[0]), int(shape[1])))
+                     (int(shape[0]), int(shape[1])),
+                     None if wide is None else wide.to(dev))
+
+
+def _bf16(a) -> torch.Tensor:
+    """A bfloat16 CPU tensor with the bits of a bfloat16 numpy array
+    (ml_dtypes' type, what np.asarray of a JAX array gives), so nothing
+    is rounded."""
+    a = np.asarray(a)
+    if a.dtype.itemsize != 2 or a.dtype.kind == "f":
+        raise ValueError(f"wide planes must be bfloat16, got {a.dtype}")
+    t = torch.from_numpy(np.array(a, copy=True).view(np.int16))
+    return t.view(torch.bfloat16)
+
+
+def wide_window(c0, p_hi, p_lo, p3, w: int, shape: Tuple[int, int],
+                min_s: int = MIN_S_DEFAULT, *, device=None) -> WideWindow:
+    """A ``WideWindow`` from the JAX package's ``WideWindow`` arrays:
+    ``c0`` (nb,), the bfloat16 planes ``p_hi``, ``p_lo`` and ``p3`` (or
+    None) laid out (w, m_pad) with chunk b in columns [128 b, 128 b +
+    128), ``w``, ``shape`` and ``min_s``.  The planes are mapped onto the
+    port's (nb, w, 128) layout bit for bit."""
+    dev = resolve_device(device)
+    w = int(w)
+
+    def plane(p):
+        t = _bf16(p)
+        nb = t.shape[1] // CHUNK
+        return t.reshape(w, nb, CHUNK).permute(1, 0, 2).contiguous().to(dev)
+
+    return WideWindow(as_tensor(np.asarray(c0, np.int32), dev),
+                      plane(p_hi), plane(p_lo),
+                      None if p3 is None else plane(p3), w,
+                      (int(shape[0]), int(shape[1])), int(min_s))
 
 
 def hyb_payload(dia: Mapping, ell: Mapping, shape: Tuple[int, int], *,

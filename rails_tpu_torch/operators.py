@@ -199,6 +199,12 @@ class DiagonalOperator(LinearOperator):
     def matmat(self, x):
         return self.d[:, None] * x
 
+    def matmat2(self, x):
+        """Error-free apply (hi, lo) for the refined driver."""
+        from rails_tpu_torch.utils.compensated import two_prod
+
+        return two_prod(self.d[:, None], x)
+
     def rmatmat(self, x):
         return self.d[:, None] * x
 
@@ -232,6 +238,9 @@ class IdentityOperator(LinearOperator):
 
     def matmat(self, x):
         return x
+
+    def matmat2(self, x):
+        return x, torch.zeros_like(x)
 
     def rmatmat(self, x):
         return x

@@ -13,6 +13,14 @@ JAX package's three Pallas schedules of this product
 ``ell_spmm_reference``, the plain PyTorch version.  There is no fallback:
 a CUDA tensor goes to the kernel or raises.  ``ell_spmm.launches`` counts
 the kernel's launches.
+
+Dispatch to the dense-window kernel: on a CUDA tensor, an ``EllMatrix``
+that carries a ``wide`` payload and a float32 x with at least
+``wide.min_s`` columns goes to ``sparse/wide_spmm.py::wide_spmm``
+(``csrc/wide_spmm.cu``) instead - the JAX package's rule
+(rails_tpu/sparse/ell_spmm.py:644-649), without its TPU memory gate.  On
+a CPU tensor the apply stays the plain ELL product, as the JAX package's
+dispatch is off the TPU.
 """
 
 from __future__ import annotations
@@ -21,7 +29,9 @@ import ctypes
 
 import torch
 
-__all__ = ["ell_spmm", "ell_spmm_reference"]
+from rails_tpu_torch.sparse.wide_spmm import wide_spmm
+
+__all__ = ["ell_spmm", "ell_spmm_reference", "wide_eligible"]
 
 
 def ell_spmm_reference(ell, x: torch.Tensor) -> torch.Tensor:
@@ -38,6 +48,15 @@ def ell_spmm_reference(ell, x: torch.Tensor) -> torch.Tensor:
         y = y + ell.values[:, l].reshape(vshape) * x.index_select(
             0, ell.indices[:, l])
     return y
+
+
+def wide_eligible(ell, x: torch.Tensor) -> bool:
+    """Does a CUDA apply of ``ell`` to ``x`` go to the dense-window
+    kernel?  Only for a ``wide`` payload and a float32 (n, s) x with
+    s >= ``wide.min_s``."""
+    wide = getattr(ell, "wide", None)
+    return (wide is not None and x.dtype == torch.float32 and x.ndim == 2
+            and x.shape[1] >= wide.min_s)
 
 
 _SYMBOLS = {torch.float32: "rails_ell_spmm_f32",
@@ -73,6 +92,8 @@ def ell_spmm(ell, x: torch.Tensor) -> torch.Tensor:
         # the C side launches on the calling thread's current device
         with torch.cuda.device(x.device):
             return ell_spmm(ell, x)
+    if wide_eligible(ell, x):
+        return wide_spmm(ell.wide, x)
     m, n = ell.shape
     idx, val = ell.indices, ell.values
     if x.dtype not in _SYMBOLS:

@@ -19,13 +19,21 @@
 rule and builds the same payloads (indices, values, offsets, data).  The
 JAX package's windowed-ELL payload (``WindowedEll``: window starts and
 window-local indices for the TPU's DMA) has no counterpart: the CUDA
-kernel reads the plain ``indices``/``values``.  Host-side analysis uses
-scipy.sparse.
+kernel reads the plain ``indices``/``values``.  ``wide_s=True`` adds the
+dense-window payload for wide multivectors to an ELL matrix
+(``sparse/wide_spmm.py``, ``csrc/wide_spmm.cu``).  Host-side analysis
+uses scipy.sparse.
+
+``matmat2`` is the error-free apply of the refined driver: (hi, lo) with
+hi + lo = A x up to O(eps^2), every product by ``two_prod`` and every
+accumulation by ``two_sum`` (plain tensor operations, as in the JAX
+package).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -35,6 +43,8 @@ import torch
 from rails_tpu_torch.operators import LinearOperator
 from rails_tpu_torch.sparse.ell_spmm import ell_spmm, ell_spmm_reference
 from rails_tpu_torch.sparse.spmm import dia_spmm, dia_spmm_reference
+from rails_tpu_torch.sparse.wide_spmm import WideWindow, build_wide_window
+from rails_tpu_torch.utils.compensated import two_prod, two_sum
 from rails_tpu_torch.utils.device import as_tensor, resolve_device
 
 __all__ = [
@@ -78,6 +88,24 @@ class DiaMatrix:
         """The plain PyTorch product (``dia_spmm_reference``)."""
         return dia_spmm_reference(self, x)
 
+    def matmat2(self, x: torch.Tensor):
+        """Error-free A @ x: (hi, lo) with A x = hi + lo up to O(eps^2)."""
+        m, n = self.shape
+        hi = torch.zeros((m,) + tuple(x.shape[1:]), dtype=x.dtype,
+                         device=x.device)
+        lo = torch.zeros_like(hi)
+        tail = (1,) * (x.ndim - 1)
+        for idx, off in enumerate(self.offsets):
+            a, b = max(0, -off), min(m, n - off)
+            if b <= a:
+                continue
+            p, e = two_prod(self.data[idx, a:b].reshape((b - a,) + tail),
+                            x[a + off:b + off])
+            s, e2 = two_sum(hi[a:b], p)
+            hi[a:b] = s
+            lo[a:b] += e + e2
+        return hi, lo
+
     def transpose(self) -> "DiaMatrix":
         """A'[j, i]: diagonal o of A becomes diagonal -o of A', with data
         re-indexed so data'[-o][i] = data[o][i - o] (square A)."""
@@ -110,6 +138,10 @@ class EllMatrix:
     indices: torch.Tensor            # (m, L) int32
     values: torch.Tensor             # (m, L)
     shape: Tuple[int, int]
+    # dense-window payload for wide multivectors (sparse/wide_spmm.py),
+    # built on request (sparse_from_scipy(..., wide_s=True)); bfloat16
+    # planes whatever the values' dtype
+    wide: Optional[WideWindow] = None
 
     def __post_init__(self):
         self.shape = (int(self.shape[0]), int(self.shape[1]))
@@ -134,17 +166,35 @@ class EllMatrix:
         """The plain PyTorch product (``ell_spmm_reference``)."""
         return ell_spmm_reference(self, x)
 
+    def matmat2(self, x: torch.Tensor):
+        """Error-free A @ x -> (hi, lo), slot by slot."""
+        m = self.shape[0]
+        hi = torch.zeros((m,) + tuple(x.shape[1:]), dtype=x.dtype,
+                         device=x.device)
+        lo = torch.zeros_like(hi)
+        if self.shape[1] == 0:
+            return hi, lo
+        vshape = (m,) + (1,) * (x.ndim - 1)
+        for l in range(self.indices.shape[1]):
+            p, e = two_prod(self.values[:, l].reshape(vshape),
+                            x.index_select(0, self.indices[:, l]))
+            hi, e2 = two_sum(hi, p)
+            lo = lo + e + e2
+        return hi, lo
+
     def astype(self, dtype) -> "EllMatrix":
         if self.values.dtype == dtype:
             return self
-        return EllMatrix(self.indices, self.values.to(dtype), self.shape)
+        return EllMatrix(self.indices, self.values.to(dtype), self.shape,
+                         self.wide)
 
     def to(self, device) -> "EllMatrix":
         dev = resolve_device(device)
         if self.values.device == dev:
             return self
         return EllMatrix(self.indices.to(dev), self.values.to(dev),
-                         self.shape)
+                         self.shape,
+                         None if self.wide is None else self.wide.to(dev))
 
 
 @dataclasses.dataclass
@@ -158,6 +208,12 @@ class HybMatrix:
 
     def matmat(self, x: torch.Tensor) -> torch.Tensor:
         return self.dia.matmat(x) + self.ell.matmat(x)
+
+    def matmat2(self, x: torch.Tensor):
+        h1, l1 = self.dia.matmat2(x)
+        h2, l2 = self.ell.matmat2(x)
+        hi, e = two_sum(h1, h2)
+        return hi, l1 + l2 + e
 
     def astype(self, dtype) -> "HybMatrix":
         dia = self.dia.astype(dtype)
@@ -232,9 +288,9 @@ class SparseOperator(LinearOperator):
         return self._apply(self.fwd if self.bwd is None else self.bwd, x)
 
     def matmat2(self, x):
-        raise NotImplementedError(
-            "the error-free apply matmat2 (precision='compensated') is not "
-            "ported yet: ROADMAP, the refinement slice")
+        """Error-free apply (hi, lo) for the refined driver (plain tensor
+        operations on any device)."""
+        return self.fwd.matmat2(x)
 
     def to_dense(self, dtype=None, device=None):
         v = self._values()
@@ -340,10 +396,14 @@ def ell_arrays_from_scipy(a: sp.spmatrix):
     return indices, values
 
 
-def _ell_from_scipy(a: sp.spmatrix, dtype, device) -> EllMatrix:
+def _ell_from_scipy(a: sp.spmatrix, dtype, device, wide_s: bool = False,
+                    wide_passes: int = 3) -> EllMatrix:
     indices, values = ell_arrays_from_scipy(a)
-    return EllMatrix(as_tensor(indices, device),
-                     as_tensor(values, device, dtype), a.shape)
+    ell = EllMatrix(as_tensor(indices, device),
+                    as_tensor(values, device, dtype), a.shape)
+    if wide_s:
+        ell.wide = build_wide_window(ell, passes=wide_passes)
+    return ell
 
 
 def _hyb_split(a: sp.csr_matrix, dia_fill_limit: float,
@@ -401,7 +461,7 @@ def _hyb_from_scipy(a: sp.csr_matrix, dtype, device, dia_fill_limit: float,
 def sparse_from_scipy(a: sp.spmatrix, *, fmt: str = "auto",
                       dia_max_offsets: int = 96, dia_fill_limit: float = 8.0,
                       dtype=None, device=None, wide_s: bool = False,
-                      **tags) -> SparseOperator:
+                      wide_passes: int = 3, **tags) -> SparseOperator:
     """Build a SparseOperator on ``device`` (default ``cuda``) from a
     scipy sparse matrix.
 
@@ -413,13 +473,13 @@ def sparse_from_scipy(a: sp.spmatrix, *, fmt: str = "auto",
     package's rule.  A HYB whose transpose does not split takes an ELL
     transpose payload.
 
-    ``wide_s=True`` (the JAX package's dense-window tensor-core payload
-    for wide multivectors, TPU kernel #7) is not ported and raises.
+    ``wide_s=True`` also builds the dense-window payload for wide
+    multivector applies (``sparse/wide_spmm.py``) on each ELL payload that
+    has a window, with ``wide_passes`` 3 (~1.5e-5 relative) or 6 (float32
+    grade); it costs w/L stored values per nonzero, so it is opt-in.  A
+    matrix that resolves to DIA or HYB warns and gets none, and neither
+    does an ELL transpose payload of a HYB matrix.
     """
-    if wide_s:
-        raise NotImplementedError(
-            "wide_s=True (the dense-window payload of TPU kernel #7) is not "
-            "ported yet: ROADMAP Queue 1, the wide-s kernel")
     if dtype is None:
         dtype = torch.get_default_dtype()
     dev = resolve_device(device)
@@ -453,9 +513,15 @@ def sparse_from_scipy(a: sp.spmatrix, *, fmt: str = "auto",
                                   dia_max_offsets)
             if bwd is None:  # the transpose split can fail on its own
                 bwd = _ell_from_scipy(at, dtype, dev)
+    if wide_s and fmt != "ell":
+        warnings.warn(
+            f"wide_s=True only applies to the ELL format; this matrix "
+            f"resolved to fmt={fmt!r} and no dense-window payload was "
+            f"built - pass fmt='ell' to force it", stacklevel=2)
     if fmt == "ell":
-        fwd = _ell_from_scipy(a, dtype, dev)
-        bwd = None if sym else _ell_from_scipy(a.T.tocsr(), dtype, dev)
+        fwd = _ell_from_scipy(a, dtype, dev, wide_s, wide_passes)
+        bwd = None if sym else _ell_from_scipy(a.T.tocsr(), dtype, dev,
+                                               wide_s, wide_passes)
     return SparseOperator(fwd, bwd, nnz=nnz, **tags)
 
 

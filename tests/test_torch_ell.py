@@ -173,12 +173,30 @@ class TestFormatChoice:
         _same_payload(op.fwd, aj.fwd)
 
     def test_wide_s_and_matmat2_raise(self, rng):
+        """``wide_s`` and ``matmat2`` are ported; what is still refused:
+        a matrix that resolves to DIA or HYB warns and gets no dense-window
+        payload (the JAX package's rule), and a float64 or narrow apply
+        never dispatches wide."""
+        from rails_tpu_torch.sparse.ell_spmm import wide_eligible
+
         a = bench_band(rng, 512)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sparse_from_scipy(a, fmt="ell", wide_s=True, device="cpu")
-        op = sparse_from_scipy(a, dtype=torch.float64, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            op.matmat2(torch.ones(512, 2, dtype=torch.float64))
+        op = sparse_from_scipy(a, fmt="ell", wide_s=True, device="cpu")
+        assert op.fwd.wide is not None and op.bwd.wide is not None
+        for fmt, mat in (("dia", laplacian2_sparse(24)),
+                         ("hyb", lap_with_couplings(rng, 24, 60))):
+            with pytest.warns(UserWarning, match="only applies to the ELL"):
+                oh = sparse_from_scipy(mat, wide_s=True, device="cpu")
+            assert oh.format == fmt
+            ells = [] if fmt == "dia" else [oh.fwd.ell]
+            assert all(e.wide is None for e in ells)
+        x = torch.ones(512, 256)
+        assert wide_eligible(op.fwd, x)
+        assert not wide_eligible(op.fwd, x.double())
+        assert not wide_eligible(op.fwd, x[:, :191])
+        o64 = sparse_from_scipy(a, dtype=torch.float64, device="cpu")
+        hi, lo = o64.matmat2(torch.ones(512, 2, dtype=torch.float64))
+        assert np.abs((hi + lo).numpy() - a @ np.ones((512, 2))).max() \
+            <= 1e-13
 
 
 class TestProductsF64:

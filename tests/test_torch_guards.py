@@ -26,7 +26,9 @@ REPO = Path(__file__).resolve().parent.parent
 def test_import_pulls_in_no_jax():
     code = ("import sys, rails_tpu_torch, rails_tpu_torch.interop, "
             "rails_tpu_torch.models.problems, rails_tpu_torch._build, "
-            "rails_tpu_torch.profile_solve\n"
+            "rails_tpu_torch.profile_solve, rails_tpu_torch.refine, "
+            "rails_tpu_torch.continuation, rails_tpu_torch.sparse.wide_spmm, "
+            "rails_tpu_torch.utils.compensated\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'rails_tpu.')) or "
             "m == 'rails_tpu')\n"
@@ -34,6 +36,23 @@ def test_import_pulls_in_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_wide_apply_has_no_fallback():
+    """A CUDA apply that qualifies for the dense-window kernel launches it
+    or raises: the ELL and wide wrappers hold no try statement that could
+    switch to the ELL kernel or a plain version (the card-side check,
+    tests/test_torch_wide.py::TestKernelOnCard::test_build_failure_raises,
+    breaks the build and sees the apply raise)."""
+    import ast
+    import inspect
+
+    from rails_tpu_torch.sparse import ell_spmm as em
+    from rails_tpu_torch.sparse import wide_spmm as wm
+
+    for fn in (em.ell_spmm, wm.wide_spmm, wm._kernel_fn):
+        tree = ast.parse(inspect.getsource(fn))
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
 
 
 @pytest.fixture
@@ -48,6 +67,8 @@ def no_card(monkeypatch):
     lambda: rt.solve(-np.eye(4), np.ones((4, 1))),
     lambda: rt.LyapunovSolver(-np.eye(4), np.ones((4, 1))),
     lambda: interop.rhs(np.ones((4, 1))),
+    lambda: rt.solve_refined(-np.eye(4), np.ones((4, 1))),
+    lambda: rt.ContinuationSolver(np.ones((4, 1))).step(-np.eye(4)),
 ])
 def test_default_device_is_cuda_and_raises_without_card(no_card, entry):
     with pytest.raises(RuntimeError, match="no CUDA device|is_available"):

@@ -130,25 +130,31 @@ class TestFormats:
 
     @pytest.mark.parametrize("fmt", ["ell", "hyb"])
     def test_ell_and_hyb_raise(self, fmt):
-        # ELL and HYB are ported; what raises is the JAX package's
-        # dense-window payload for wide multivectors (TPU kernel #7)
-        op = sparse_from_scipy(laplacian2_sparse(8), fmt=fmt,
+        # ELL, HYB and the dense-window payload are ported: forced to ELL
+        # or HYB (which falls to ELL: the Laplacian has no remainder), the
+        # side-8 Laplacian resolves as in the JAX package, and with 64 <
+        # 256 rows it has no window, so wide_s builds nothing in either
+        op = sparse_from_scipy(laplacian2_sparse(8), fmt=fmt, wide_s=True,
                                dtype=torch.float64, device="cpu")
-        assert op.format == jax_sparse(laplacian2_sparse(8), fmt=fmt).format
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sparse_from_scipy(laplacian2_sparse(8), fmt=fmt, wide_s=True,
-                              device="cpu")
+        aj = jax_sparse(laplacian2_sparse(8), fmt=fmt, wide_s=True)
+        assert op.format == aj.format == "ell"
+        assert op.fwd.wide is None and aj.fwd.wide is None
+        with pytest.warns(UserWarning, match="only applies to the ELL"):
+            od = sparse_from_scipy(laplacian2_sparse(8), fmt="dia",
+                                   wide_s=True, device="cpu")
+        assert od.format == "dia"
 
     def test_auto_raises_where_jax_picks_ell(self, rng):
-        # the port now picks ELL where the JAX package does; only the
-        # unported wide-s payload raises
+        # the port picks ELL where the JAX package does, and wide_s no
+        # longer raises: at 100 rows neither package builds a window
         from rails_tpu_torch.models.problems import random_sparse
 
         a = sp.csr_matrix(random_sparse(rng, 100))
         assert jax_sparse(a).format == "ell"
         assert sparse_from_scipy(a, device="cpu").format == "ell"
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sparse_from_scipy(a, wide_s=True, device="cpu")
+        op = sparse_from_scipy(a, wide_s=True, device="cpu")
+        assert op.format == "ell" and op.fwd.wide is None
+        assert jax_sparse(a, wide_s=True).fwd.wide is None
 
     def test_dia_shape_checked(self):
         with pytest.raises(ValueError, match="DIA data shape"):
