@@ -73,9 +73,43 @@ exits nonzero and never prints the last line):
               one, each entering with >= 192 carried columns and
               launching the wide kernel.
 
+13. compare_halo - the halo kernel (#3) against its plain version on the
+              card, max|dy| <= 1e-5 max|y| at float32, 1e-12 max|y| at
+              float64: the solve stencil (m=65536, offsets 0, +-1, +-256)
+              cut into 4 shards on cuda:0 at s = 1, 6, 8, 16 - an interior
+              shard, both boundary shards, and a one-sided stencil with an
+              empty halo; the JAX bench's mesh geometry (side 1536, s=16,
+              f32) at 4 shards; one whole HaloDiaOperator apply at 4 shards
+              against the DIA kernel's unsharded apply (max|dy|, and
+              whether it is exactly 0 at float64).
+14. timing_halo - the halo kernel's times per shard launch at the mesh
+              solve's shard (m_loc=16384, spans 256, s=8, f64) and the
+              bench mesh geometry's shard (m_loc=589824, spans 1536, s=16,
+              f32), beside its plain version, torch.sparse.mm on a CSR copy
+              of the shard's (m_loc x ext) operator, and the bound;
+              halo_overhead_vs_plain: HaloDiaOperator.matmat at 1 and 4
+              shards over the DIA kernel's apply (bench geometry), and
+              HaloEllOperator.matmat at 4 shards over the ELL kernel's
+              apply (m=2^20, L=8, band +-64, s=16, f32).
+15. mesh_solve - the slice's main path: solve_f64's problem through
+              LyapunovSolver(mesh=make_mesh(devices=["cuda:0"] * 4)): A a
+              HaloDiaOperator, converged with an f64 true residual <= 2 tol,
+              4 halo-kernel launches per A apply and no DIA-kernel launch,
+              iterations equal to solve_f64's (or within 1%).
+16. mesh_ell - the continuation Jacobian (theta 0, side 128) in ELL at
+              f64, on the 4-shard mesh and unsharded: a HaloEllOperator,
+              both converged with true residual <= 2 tol, iterations equal
+              (or within 1%), 4 ELL launches per apply on the mesh.
+17. mesh_schur - (a) distribute_schur on cli_schur's DAE (side 192) at 4
+              shards, matmat and rmatmat at s=8 against the reduction's
+              operator to 1e-12 relative; (b) the CLI's --distributed on a
+              side-96 DAE: "Distributed operator: DistributedSchurOperator",
+              converged with true residual <= 2 tol, V/T read back equal,
+              leading eigenvalue equal to eigsh's to 1e-6.
+
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  ``--only`` runs env, build and the named
-phases of 8-12 and stops there (no kernel table, no last line).
+phases of 8-17 and stops there (no kernel table, no last line).
 """
 
 import contextlib
@@ -404,17 +438,18 @@ def host_schur(a, md, b, v, t):
 CLI_SIDE = 192   # n = 36,864; side 256 (n = 65,536) ran 220-320 s
 
 
-def run_cli_schur(torch, spmm, em, tol):
+def run_cli_schur(torch, spmm, em, tol, side=CLI_SIDE, extra=(),
+                  label="cli_schur"):
     """The reference's main-program path through the port's CLI on the
-    side-192 Laplacian DAE at float64; counts reset just before
-    ``cli.main``, read just after."""
+    side-``side`` Laplacian DAE at float64 (``extra``: more CLI flags);
+    counts reset just before ``cli.main``, read just after."""
     import scipy.sparse as sp
 
     from rails_tpu_torch import cli
     from rails_tpu_torch import io as rio
 
     tmod = importlib.import_module("rails_tpu_torch.timer")
-    a, md, b = laplacian_dae(CLI_SIDE)
+    a, md, b = laplacian_dae(side)
     params = {"Lyapunov Solver": {"Tolerance": tol,
                                   "Maximum iterations": 3000,
                                   "Expand size": 8, "Restart size": 160,
@@ -443,7 +478,7 @@ def run_cli_schur(torch, spmm, em, tol):
             em.ell_spmm.launches = 0
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
-                rc = cli.main([d, "--x64", "--params", p])
+                rc = cli.main([d, "--x64", "--params", p, *extra])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             ell_launches = em.ell_spmm.launches
@@ -470,7 +505,7 @@ def run_cli_schur(torch, spmm, em, tol):
     res_true, lam_host = host_schur(a, md, b, v, t)
     iters = int(mt.group(2))
     lam_cli = table[0][0]
-    out = {"phase": "cli_schur", "n": a.shape[0], "n1": int((md == 0).sum()),
+    out = {"phase": label, "n": a.shape[0], "n1": int((md == 0).sum()),
            "n2": int((md != 0).sum()), "dtype": "float64", "rc": rc,
            "converged": mt.group(1) == "converged", "iters": iters,
            "res": float(mt.group(3)), "rank": int(mt.group(4)),
@@ -487,25 +522,44 @@ def run_cli_schur(torch, spmm, em, tol):
            "eig_table": table, "scopes": scopes,
            "project_solve_share": scopes.get("Solver/project_solve", {})
            .get("total_s", 0.0) / wall}
+    mt = re.search(r"Distributed operator: (\w+)", text)
+    out["distributed_operator"] = mt.group(1) if mt else None
     if rc != 0 or not out["converged"]:
-        raise AssertionError(f"cli_schur did not converge: {out}")
+        raise AssertionError(f"{label} did not converge: {out}")
     if res_true > 2 * tol:
-        raise AssertionError(f"cli_schur true residual above 2 tol: {out}")
+        raise AssertionError(f"{label} true residual above 2 tol: {out}")
     if not out["vt_read_back_equal"]:
-        raise AssertionError(f"cli_schur V.mtx/T.mtx differ from the "
+        raise AssertionError(f"{label} V.mtx/T.mtx differ from the "
                              f"solution: {out}")
     if out["lambda1_rel_diff"] > 1e-6:
-        raise AssertionError(f"cli_schur leading eigenvalue disagrees with "
+        raise AssertionError(f"{label} leading eigenvalue disagrees with "
                              f"eigsh: {out}")
     if ell_launches <= 0:
-        raise AssertionError(f"cli_schur never launched ell_spmm: {out}")
+        raise AssertionError(f"{label} never launched ell_spmm: {out}")
     return out
 
 
-def run_solve(torch, rt, spmm, label, side, dtype, opts, rounded_inputs):
+def count_applies(op):
+    """Count ``op``'s matmat and rmatmat calls (instance attributes that
+    shadow the methods, for this run only); returns the counter."""
+    n = [0]
+
+    def counted(fn):
+        def call(x):
+            n[0] += 1
+            return fn(x)
+        return call
+
+    op.matmat, op.rmatmat = counted(op.matmat), counted(op.rmatmat)
+    return n
+
+
+def run_solve(torch, rt, spmm, label, side, dtype, opts, rounded_inputs,
+              mesh=None):
     """Build the bench problem (DIA Laplacian, M = diag(U[0.5, 1.5]), B
     (n, 8) U[0, 1) from default_rng(0)) and solve it through the public
-    entry points; counts reset just before the solve, read just after."""
+    entry points (on ``mesh`` when given: ``LyapunovSolver(mesh=...)``);
+    counts reset just before the solve, read just after."""
     from rails_tpu_torch.models.problems import laplacian2_sparse
 
     n = side * side
@@ -519,17 +573,20 @@ def run_solve(torch, rt, spmm, label, side, dtype, opts, rounded_inputs):
     aop = rt.sparse_from_scipy(lap, fmt="dia", dtype=dtype,
                                is_symmetric=True)
     mop = rt.DiagonalOperator(torch.from_numpy(md).to("cuda", dtype))
-    solver = rt.LyapunovSolver(aop, b, mop, dtype=dtype, **opts)
+    solver = rt.LyapunovSolver(aop, b, mop, dtype=dtype, mesh=mesh, **opts)
+    applies = count_applies(solver.A)
     walls = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     spmm.dia_spmm.launches = 0
+    spmm.dia_spmm_halo.launches = 0
     t0 = time.perf_counter()
     v, t, info = solver.solve(
         progress=lambda it, wall, res: walls.append(wall))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = spmm.dia_spmm.launches
+    halo_launches = spmm.dia_spmm_halo.launches
     half = len(walls) // 2
     per_it = (walls[-1] - walls[half]) / max(1, len(walls) - 1 - half)
     res_true = true_residual(lap, md, b, v, t, rng)
@@ -539,13 +596,21 @@ def run_solve(torch, rt, spmm, label, side, dtype, opts, rounded_inputs):
            "wall_s": wall, "s_per_iter_second_half": per_it,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "dia_spmm_launches": launches, "mvps": info.mvps,
-           "res_true_f64": res_true, "tol": opts["tol"]}
+           "res_true_f64": res_true, "tol": opts["tol"],
+           "operator": type(solver.A).__name__, "a_applies": applies[0],
+           "dia_spmm_halo_launches": halo_launches}
     if not info.converged:
         raise AssertionError(f"{label} did not converge: {out}")
     if res_true > 2 * opts["tol"]:
         raise AssertionError(f"{label} true residual above 2 tol: {out}")
-    if launches <= 0:
+    if mesh is None and launches <= 0:
         raise AssertionError(f"{label} never launched dia_spmm: {out}")
+    if mesh is not None and (
+            out["operator"] != "HaloDiaOperator" or launches != 0
+            or applies[0] <= 0 or halo_launches != mesh.size * applies[0]):
+        raise AssertionError(f"{label}: the mesh's A applies did not go "
+                             f"through {mesh.size} halo-kernel launches "
+                             f"each and no DIA-kernel launch: {out}")
     return out, (lap, md, b, aop, mop, solver)
 
 
@@ -840,6 +905,10 @@ def run_continuation_wide(torch, rt, em, wm):
     return out
 
 
+OPTS64 = dict(tol=1e-4, expand=8, restart_size=160, reduced_size=80,
+              maxit=3000)   # solve_f64 and mesh_solve
+
+
 def run_earlier_phases(torch, rt, spmm, em, smi, gen):
     """Phases 3-7 (the DIA and ELL kernels, the two solves, the CLI's
     Schur path), each emitting its line; returns, per kernel, its
@@ -950,9 +1019,7 @@ def run_earlier_phases(torch, rt, spmm, em, smi, gen):
 
     # ---- 6. solve f64, n=65536 (phase_scale geometry, plain f64)
     t0 = time.perf_counter()
-    opts64 = dict(tol=1e-4, expand=8, restart_size=160, reduced_size=80,
-                  maxit=3000)
-    out64, prob = run_solve(torch, rt, spmm, "solve_f64", 256, f64, opts64,
+    out64, prob = run_solve(torch, rt, spmm, "solve_f64", 256, f64, OPTS64,
                             True)
     main_launches = out64["dia_spmm_launches"]
     out64.update({"jax_cpu_f64_iters": 742,
@@ -969,7 +1036,7 @@ def run_earlier_phases(torch, rt, spmm, em, smi, gen):
     tmod.reset_profiles()
     tmod.enable_profiling()
     try:
-        opts_prof = dict(opts64, maxit=200)
+        opts_prof = dict(OPTS64, maxit=200)
         rt.LyapunovSolver(aop, b64, mop, dtype=f64,
                           **opts_prof).solve()
     finally:
@@ -986,7 +1053,8 @@ def run_earlier_phases(torch, rt, spmm, em, smi, gen):
     emit(out_cli)
     return {"dia": (main_launches, slice_err, timings[0]),
             "ell": (out_cli["ell_spmm_launches"], ell_slice_err,
-                    ell_timings[0])}
+                    ell_timings[0]),
+            "solve_f64": out64}
 
 
 def run_wide_phases(torch, rt, spmm, em, wm, refine_mod, smi, gen, only):
@@ -1093,8 +1161,366 @@ def run_wide_phases(torch, rt, spmm, em, wm, refine_mod, smi, gen, only):
     return launches, wide_err, wide_t
 
 
+MESH_ND = 4        # shards on cuda:0 in the mesh phases
+MESH_CLI_SIDE = 96  # mesh_schur (b): n = 9,216
+
+
+def halo_shard(torch, data, offsets, x, r, nd):
+    """Shard r of ``nd`` of a global DIA product: (data_loc, offsets_t,
+    x_loc, hl, hh), the halos copied from the neighbours' rows (zeros
+    beyond the matrix, None for a 0 span)."""
+    m, s = x.shape
+    r0, r1 = r * (m // nd), (r + 1) * (m // nd)
+    lo, hi = max(0, -min(offsets)), max(0, max(offsets))
+
+    def halo(a, b):
+        if b <= a:
+            return None
+        if a < 0 or b > m:
+            return torch.zeros((b - a, s), dtype=x.dtype, device=x.device)
+        return x[a:b].clone()
+
+    offs = torch.tensor(offsets, dtype=torch.int32, device=x.device)
+    return (data[:, r0:r1].contiguous(), offs, x[r0:r1], halo(r0 - lo, r0),
+            halo(r1, r1 + hi))
+
+
+def compare_halo_case(torch, spmm, label, args):
+    """The halo kernel against its plain version on one shard's inputs."""
+    y = spmm.dia_spmm_halo(*args)
+    torch.cuda.synchronize()
+    ref = spmm.dia_spmm_halo_reference(*args)
+    err = (y - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    x_loc, hl, hh = args[2], args[3], args[4]
+    name = str(x_loc.dtype).replace("torch.", "")
+    row = {"case": label, "m_loc": x_loc.shape[0], "s": x_loc.shape[1],
+           "offsets": args[1].tolist(), "dtype": name,
+           "span_lo": 0 if hl is None else hl.shape[0],
+           "span_hi": 0 if hh is None else hh.shape[0],
+           "max_abs_err": err, "max_abs_y": scale,
+           "ok": err <= TOL[name] * scale}
+    if not row["ok"]:
+        raise AssertionError(f"dia_spmm_halo disagrees with its plain "
+                             f"version: {row}")
+    return row
+
+
+def ext_csr(torch, data_loc, offsets, lo, ext):
+    """A CUDA CSR copy of a shard's (m_loc x ext) operator on the extended
+    operand [hl; x_loc; hh], for torch.sparse.mm."""
+    import scipy.sparse as sp
+
+    d = data_loc.detach().cpu().numpy()
+    m_loc = d.shape[1]
+    i = np.arange(m_loc)
+    c = sp.coo_matrix(
+        (d.ravel(), (np.tile(i, len(offsets)),
+                     np.concatenate([i + lo + o for o in offsets]))),
+        shape=(m_loc, ext)).tocsr()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "CSR support is in beta"
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(c.indptr.astype(np.int64)),
+            torch.from_numpy(c.indices.astype(np.int64)),
+            torch.from_numpy(c.data), size=(m_loc, ext), device="cuda")
+
+
+def timing_halo_case(torch, spmm, label, m_loc, offsets, s, dtype, gen,
+                     reps):
+    """The halo kernel's time per shard launch beside its bound: (d m_loc
+    + (span_lo + m_loc + span_hi) s + m_loc s) itemsize bytes over 3.35
+    TB/s against 2 d m_loc s flops; its plain version; torch.sparse.mm on
+    a CSR copy of the shard's (m_loc x ext) operator."""
+    name = str(dtype).replace("torch.", "")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    d = len(offsets)
+    lo, hi = max(0, -min(offsets)), max(0, max(offsets))
+    ext = lo + m_loc + hi
+    nbytes = (d * m_loc + ext * s + m_loc * s) * itemsize
+    flops = 2 * d * m_loc * s
+    offs = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    sets = [(random_x(torch, d, m_loc, dtype, gen), offs,
+             random_x(torch, m_loc, s, dtype, gen),
+             random_x(torch, lo, s, dtype, gen),
+             random_x(torch, hi, s, dtype, gen))
+            for _ in range(n_copies(nbytes + m_loc * s * itemsize))]
+    lib_sets = [(ext_csr(torch, st[0], offsets, lo, ext),
+                 torch.cat([st[3], st[2], st[4]])) for st in sets]
+    row = time_kernel(torch, label, spmm.dia_spmm_halo,
+                      spmm.dia_spmm_halo_reference, sets, nbytes, flops,
+                      name, reps, lib_sets=lib_sets)
+    row.update({"m_loc": m_loc, "d": d, "span_lo": lo, "span_hi": hi,
+                "s": s})
+    return row
+
+
+def halo_overhead(torch, rt, spmm, em, gen, reps):
+    """bench.py's halo_overhead_vs_plain (:872-874, 946-952) on the card:
+    HaloDiaOperator.matmat at 1 and 4 shards over the DIA kernel's apply
+    at the bench mesh geometry (side 1536, s=16, f32), and
+    HaloEllOperator.matmat at 4 shards over the ELL kernel's apply at the
+    bench's ELL geometry (:987-996: m=2^20, L=8, band +-64, s=16, f32);
+    device times by CUDA events, x alone larger than the L2."""
+    from rails_tpu_torch.parallel.halo_ell import HaloEllOperator
+    from rails_tpu_torch.parallel.halo_spmm import HaloDiaOperator
+    from rails_tpu_torch.parallel.sharded import shard_operator
+    from rails_tpu_torch.sparse.formats import sparse_from_scipy
+
+    f32 = torch.float32
+    side = 1536
+    m = side * side
+    dia = random_dia(torch, m, m, (-side, -1, 0, 1, side), f32, gen)
+    x = random_x(torch, m, 16, f32, gen)
+    y1 = spmm.dia_spmm(dia, x)
+    out = {"dia_m": m, "s": 16, "dia_plain_kernel_ms": time_ms(
+        torch, spmm.dia_spmm, [(dia, x)], reps)}
+    for nd in (1, MESH_ND):
+        h = HaloDiaOperator(dia, rt.make_mesh(devices=["cuda:0"] * nd))
+        err = (h.matmat(x) - y1).abs().max().item()
+        if err > TOL["float32"] * y1.abs().max().item():
+            raise AssertionError(f"HaloDiaOperator at nd={nd} disagrees "
+                                 f"with dia_spmm: {err}")
+        ms = time_ms(torch, h.matmat, [(x,)], reps)
+        out[f"dia_halo_nd{nd}_ms"] = ms
+        out[f"halo_overhead_vs_plain_nd{nd}"] = \
+            ms / out["dia_plain_kernel_ms"]
+        del h
+    del dia, x, y1
+    op = sparse_from_scipy(banded_ell(1 << 20, 1 << 20, 8, 64, 0, seed=2),
+                           fmt="ell", dtype=f32)
+    h = shard_operator(op, rt.make_mesh(devices=["cuda:0"] * MESH_ND))
+    if not isinstance(h, HaloEllOperator):
+        raise AssertionError(f"the bench ELL geometry sharded to {type(h)}")
+    x = random_x(torch, 1 << 20, 16, f32, gen)
+    ye = em.ell_spmm(op.fwd, x)
+    err = (h.matmat(x) - ye).abs().max().item()
+    if err > TOL["float32"] * ye.abs().max().item():
+        raise AssertionError(f"HaloEllOperator disagrees with ell_spmm: "
+                             f"{err}")
+    out["ell_m"] = 1 << 20
+    out["ell_halo"] = [h.fwd.halo_lo, h.fwd.halo_hi]
+    out["ell_plain_kernel_ms"] = time_ms(torch, em.ell_spmm, [(op.fwd, x)],
+                                         reps)
+    out[f"ell_halo_nd{MESH_ND}_ms"] = time_ms(torch, h.matmat, [(x,)], reps)
+    out[f"ell_halo_overhead_vs_plain_nd{MESH_ND}"] = \
+        out[f"ell_halo_nd{MESH_ND}_ms"] / out["ell_plain_kernel_ms"]
+    return out
+
+
+def run_mesh_ell(torch, rt, em, mesh):
+    """bench.py:620-630's Jacobian at theta = 0, side 128 (n = 16,384), in
+    ELL without wide planes at f64, M and B as at :617-618 (drawn at
+    float32), tol 1e-4, expand 6, restart 120 -> 60 (bench.py:633-635),
+    maxit 1000: on the mesh and unsharded, counts reset just before each
+    solve and read just after."""
+    side, tol = CONT_SIDE, 1e-4
+    n = side * side
+    rng = np.random.default_rng(0)
+    md = rng.uniform(0.5, 1.5, n).astype(np.float32).astype(np.float64)
+    b = rng.uniform(0, 1, (n, 8)).astype(np.float32).astype(np.float64)
+    a = continuation_jacobian(side, 0.0)
+    runs = {}
+    for label, msh in (("mesh", mesh), ("unsharded", None)):
+        aop = rt.sparse_from_scipy(a, fmt="ell", dtype=torch.float64,
+                                   is_symmetric=True)
+        solver = rt.LyapunovSolver(
+            aop, b, rt.DiagonalOperator(md, device="cuda"), mesh=msh,
+            dtype=torch.float64, tol=tol, expand=6, restart_size=120,
+            reduced_size=60, maxit=1000)
+        applies = count_applies(solver.A)
+        torch.cuda.synchronize()
+        em.ell_spmm.launches = 0
+        t0 = time.perf_counter()
+        v, t, info = solver.solve()
+        torch.cuda.synchronize()
+        runs[label] = {
+            "operator": type(solver.A).__name__, "iters": info.iter,
+            "converged": bool(info.converged), "res_est": float(info.res),
+            "rank": int(v.shape[1]), "wall_s": time.perf_counter() - t0,
+            "a_applies": applies[0], "ell_spmm_launches": em.ell_spmm.launches,
+            "res_true_f64": true_residual(a, md, b, v, t, rng)}
+    mr, ur = runs["mesh"], runs["unsharded"]
+    out = {"phase": "mesh_ell", "n": n, "tol": tol, "dtype": "float64",
+           "shards": mesh.size, "runs": runs,
+           "iters_equal": mr["iters"] == ur["iters"]}
+    if mr["operator"] != "HaloEllOperator":
+        raise AssertionError(f"mesh_ell: A is not a HaloEllOperator: {out}")
+    if any(not r["converged"] or r["res_true_f64"] > 2 * tol
+           for r in runs.values()):
+        raise AssertionError(f"mesh_ell did not converge to 2 tol: {out}")
+    if abs(mr["iters"] - ur["iters"]) > 0.01 * ur["iters"]:
+        raise AssertionError(f"mesh_ell iterations differ by > 1%: {out}")
+    if mr["a_applies"] <= 0 or \
+            mr["ell_spmm_launches"] != mesh.size * mr["a_applies"]:
+        raise AssertionError(f"mesh_ell: not {mesh.size} ELL launches per "
+                             f"apply: {out}")
+    return out
+
+
+def run_schur_dist_apply(torch, rt, mesh, gen):
+    """distribute_schur on cli_schur's DAE (side 192, n2 = 24,576, f64) at
+    4 shards: matmat and rmatmat at s = 8 against the reduction's own
+    operator, relative error <= 1e-12."""
+    from rails_tpu_torch.parallel.schur_dist import (
+        DistributedSchurOperator, distribute_schur)
+
+    a, md, b = laplacian_dae(CLI_SIDE)
+    t0 = time.perf_counter()
+    red = rt.schur_reduce(a, md, b, dtype=torch.float64)
+    op = distribute_schur(red, mesh)
+    if not isinstance(op, DistributedSchurOperator):
+        raise AssertionError(f"distribute_schur gave {type(op)}")
+    x = random_x(torch, red.n2, 8, torch.float64, gen)
+    rows = {}
+    for name in ("matmat", "rmatmat"):
+        y = getattr(op, name)(x)
+        ref = getattr(red.operator, name)(x)
+        rows[name] = (y - ref).abs().max().item() / ref.abs().max().item()
+    torch.cuda.synchronize()
+    out = {"case": "distribute_schur side 192", "n1": red.n1, "n2": red.n2,
+           "shards": mesh.size, "a22": type(op.a22).__name__, "s": 8,
+           "rel_err": rows, "wall_s": time.perf_counter() - t0}
+    if max(rows.values()) > 1e-12:
+        raise AssertionError(f"distribute_schur disagrees: {out}")
+    return out
+
+
+def run_mesh_phases(torch, rt, spmm, em, smi, gen, only, solve_f64):
+    """Phases 13-17 (this slice's: kernel #3 and the mesh path), each
+    emitting its line, those not in ``only`` skipped (None: all).
+    ``solve_f64``: that phase's line, to hold mesh_solve against (run
+    here when the earlier phases were skipped).  Returns kernel #3's
+    launches on mesh_solve, its compare error and its timing row (None
+    for a phase that was skipped)."""
+    from rails_tpu_torch.parallel.halo_spmm import HaloDiaOperator
+
+    def want(name):
+        return only is None or name in only
+
+    f32, f64 = torch.float32, torch.float64
+    mesh = rt.make_mesh(devices=["cuda:0"] * MESH_ND)
+    solve_offsets = (-256, -1, 0, 1, 256)
+
+    # ---- 13. compare the halo kernel
+    halo_err = None
+    if want("compare_halo"):
+        t0 = time.perf_counter()
+        rows, applies = [], []
+        for dtype in (f32, f64):
+            data = random_x(torch, 5, 65536, dtype, gen)
+            for s in (1, 6, 8, 16):
+                x = random_x(torch, 65536, s, dtype, gen)
+                for r, where in ((1, "interior"), (0, "first"),
+                                 (MESH_ND - 1, "last")):
+                    rows.append(compare_halo_case(
+                        torch, spmm, f"solve stencil, {where} shard",
+                        halo_shard(torch, data, solve_offsets, x, r,
+                                   MESH_ND)))
+                rows.append(compare_halo_case(
+                    torch, spmm, "one-sided stencil, empty lower halo",
+                    halo_shard(torch, data[:3], (0, 1, 256), x, 1,
+                               MESH_ND)))
+            for s in (8,):
+                dia = random_dia(torch, 65536, 65536, solve_offsets, dtype,
+                                 gen)
+                x = random_x(torch, 65536, s, dtype, gen)
+                y = HaloDiaOperator(dia, mesh).matmat(x)
+                y1 = spmm.dia_spmm(dia, x)
+                torch.cuda.synchronize()
+                diff = (y - y1).abs().max().item()
+                name = str(dtype).replace("torch.", "")
+                applies.append({"case": "HaloDiaOperator apply vs dia_spmm",
+                                "m": 65536, "shards": MESH_ND, "s": s,
+                                "dtype": name, "max_abs_diff": diff,
+                                "exactly_equal": diff == 0.0})
+                if diff > TOL[name] * y1.abs().max().item():
+                    raise AssertionError(f"HaloDiaOperator disagrees with "
+                                         f"dia_spmm: {applies[-1]}")
+        side = 1536
+        m = side * side
+        data = random_x(torch, 5, m, f32, gen)
+        x = random_x(torch, m, 16, f32, gen)
+        for r in range(MESH_ND):
+            rows.append(compare_halo_case(
+                torch, spmm, f"bench mesh geometry, shard {r}",
+                halo_shard(torch, data, (-side, -1, 0, 1, side), x, r,
+                           MESH_ND)))
+        del data, x
+        halo_err = next(r["max_abs_err"] for r in rows
+                        if r["m_loc"] == 16384 and r["s"] == 8
+                        and r["dtype"] == "float64"
+                        and r["case"].endswith("interior shard"))
+        emit({"phase": "compare_halo", "cases": rows, "applies": applies,
+              "all_ok": True, "wall_s": time.perf_counter() - t0})
+
+    # ---- 14. timing of the halo kernel, halo_overhead_vs_plain
+    halo_t = None
+    if want("timing_halo"):
+        t0 = time.perf_counter()
+        rows = [
+            timing_halo_case(torch, spmm, "mesh solve shard f64 s=8", 16384,
+                             solve_offsets, 8, f64, gen, 400),
+            timing_halo_case(torch, spmm, "bench mesh shard f32 s=16",
+                             589824, (-1536, -1, 0, 1, 1536), 16, f32, gen,
+                             50),
+        ]
+        halo_t = rows[0]
+        overhead = halo_overhead(torch, rt, spmm, em, gen, 50)
+        emit({"phase": "timing_halo", "cases": rows, "overhead": overhead,
+              "smi": smi, "wall_s": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+
+    # ---- 15. the main path: the n = 65,536 f64 solve on the mesh
+    launches = None
+    if want("mesh_solve"):
+        t0 = time.perf_counter()
+        if solve_f64 is None:
+            solve_f64, _ = run_solve(torch, rt, spmm, "solve_f64", 256, f64,
+                                     OPTS64, True)
+        out, _ = run_solve(torch, rt, spmm, "mesh_solve", 256, f64, OPTS64,
+                           True, mesh=mesh)
+        launches = out["dia_spmm_halo_launches"]
+        ref_iters = solve_f64["iters"]
+        out.update({"shards": MESH_ND,
+                    "halo_launches_per_apply": launches / out["a_applies"],
+                    "solve_f64_iters": ref_iters,
+                    "iters_equal": out["iters"] == ref_iters,
+                    "solve_f64_wall_s": solve_f64["wall_s"],
+                    "wall_over_solve_f64": out["wall_s"]
+                    / solve_f64["wall_s"],
+                    "phase_wall_s": time.perf_counter() - t0})
+        if abs(out["iters"] - ref_iters) > 0.01 * ref_iters:
+            raise AssertionError(f"mesh_solve iterations differ from "
+                                 f"solve_f64's by > 1%: {out}")
+        emit(out)
+
+    # ---- 16. the ELL halo path in a solve
+    if want("mesh_ell"):
+        t0 = time.perf_counter()
+        out = run_mesh_ell(torch, rt, em, mesh)
+        out["phase_wall_s"] = time.perf_counter() - t0
+        emit(out)
+
+    # ---- 17. the distributed Schur operator and the CLI's --distributed
+    if want("mesh_schur"):
+        t0 = time.perf_counter()
+        apply_row = run_schur_dist_apply(torch, rt, mesh, gen)
+        torch.cuda.empty_cache()
+        out = run_cli_schur(torch, spmm, em, 1e-4, side=MESH_CLI_SIDE,
+                            extra=("--distributed",), label="mesh_schur")
+        if out["distributed_operator"] != "DistributedSchurOperator":
+            raise AssertionError(f"mesh_schur: the CLI's distributed "
+                                 f"operator is {out['distributed_operator']}")
+        out.update({"distribute_schur": apply_row,
+                    "phase_wall_s": time.perf_counter() - t0})
+        emit(out)
+    return launches, halo_err, halo_t
+
+
 NEW_PHASES = ("compare_wide", "timing_wide", "refined_acc", "refined_scale",
-              "continuation_wide")
+              "continuation_wide", "compare_halo", "timing_halo",
+              "mesh_solve", "mesh_ell", "mesh_schur")
 
 
 def parse_only(argv):
@@ -1152,6 +1578,8 @@ def main():
         earlier = run_earlier_phases(torch, rt, spmm, em, smi, gen)
     wide = run_wide_phases(torch, rt, spmm, em, wm, refine_mod, smi, gen,
                            only)
+    halo = run_mesh_phases(torch, rt, spmm, em, smi, gen, only,
+                           None if earlier is None else earlier["solve_f64"])
     if only is not None:
         return
 
@@ -1169,6 +1597,8 @@ def main():
     emit({"kernels": [
         row("dia_spmm", "rails_tpu_torch/csrc/dia_spmm.cu",
             "rails_tpu/sparse/spmm.py:75", *earlier["dia"]),
+        row("dia_spmm_halo", "rails_tpu_torch/csrc/dia_spmm_halo.cu",
+            "rails_tpu/sparse/spmm.py:414", *halo),
         row("ell_spmm", "rails_tpu_torch/csrc/ell_spmm.cu",
             "rails_tpu/sparse/ell_spmm.py:344", *earlier["ell"]),
         wide_row], "total_wall_s": time.perf_counter() - t_start})

@@ -13,7 +13,11 @@ Lyapunov solvers; the solver, in standard and compensated precision; the
 refined driver ``solve_refined`` (staged defect correction to 1e-8 at
 float32); continuation runs with warm starts (``ContinuationSolver``);
 the Schur reduction for a singular M; the eigensolvers; MatrixMarket
-I/O, parameter files and the CLI (``python -m rails_tpu_torch.cli``).
+I/O, parameter files and the CLI (``python -m rails_tpu_torch.cli``);
+the row-sharded mesh path (``make_mesh``, ``parallel/``: halo DIA with
+its CUDA kernel, halo ELL/HYB, the distributed Schur operator, ``mesh=``
+on the solver, ``eigs`` and continuation, the CLI's ``--distributed``)
+on one device.
 It imports neither ``jax`` nor ``rails_tpu``.
 """
 
@@ -45,6 +49,7 @@ from rails_tpu_torch.core.solver import (  # noqa: F401
 )
 from rails_tpu_torch.continuation import ContinuationSolver  # noqa: F401
 from rails_tpu_torch.eigs import eigs, eigs_general  # noqa: F401
+from rails_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
 from rails_tpu_torch.refine import RefineInfo, solve_refined  # noqa: F401
 from rails_tpu_torch.schur import SchurReduction, schur_reduce  # noqa: F401
 from rails_tpu_torch.sparse.formats import (  # noqa: F401

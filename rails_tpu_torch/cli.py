@@ -5,7 +5,8 @@ src/main.cpp, with the flags and the output of the JAX package's
 Usage:
     python -m rails_tpu_torch.cli [--params params.xml|json]
                                   [--device cuda|cpu] [--x64]
-                                  [--only-eigenvalues] [directory]
+                                  [--only-eigenvalues] [--distributed]
+                                  [directory]
 
 Reads A.mtx / B.mtx / M.mtx from the directory (main.cpp:62-72), builds
 the Schur reduction for the singular mass matrix (main.cpp:78-88: A12,
@@ -18,7 +19,17 @@ profiler's table (main.cpp:172-173).
 
 ``--device`` (default ``cuda``) takes the place of the JAX package's
 ``--platform``; ``--x64`` solves in float64 instead of float32.
-``--distributed`` (the multi-process run) is not ported and raises.
+
+``--distributed`` runs the row-sharded mesh path, as the JAX package's
+does (its multi-process production posture) but in one process:
+``make_mesh`` over the visible devices of ``--device`` (every CUDA card;
+the one CPU device), ``pad_system`` to the mesh size, then for a
+singular M the distributed Schur operator (``parallel/schur_dist.py``),
+otherwise the direct path with ``--fmt`` and a diagonal M (a
+non-diagonal M ends the run), whose eigenvalue phase runs ``eigs`` over
+the solution as a ``LowRankOperator`` on the mesh.  More than one
+process (``--num-processes`` above 1) and a mesh over more than one
+distinct card raise ``NotImplementedError`` (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -26,9 +37,6 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-
-_DISTRIBUTED_TODO = ("--distributed (the multi-process run) is not ported "
-                     "yet: ROADMAP Queue 1, the distributed layer")
 
 
 def main(argv=None) -> int:
@@ -54,7 +62,8 @@ def main(argv=None) -> int:
                          "the solve (deterministic, so --only-eigenvalues "
                          "reloads stay consistent)")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-process run (not ported)")
+                    help="row-sharded mesh run over the visible devices; "
+                         "see module docstring")
     ap.add_argument("--coordinator", default=None,
                     help="coordinator address host:port (--distributed)")
     ap.add_argument("--num-processes", type=int, default=None,
@@ -65,9 +74,9 @@ def main(argv=None) -> int:
                     help="sparse operator format for the direct "
                          "(non-Schur) distributed path (--distributed)")
     args = ap.parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(_DISTRIBUTED_TODO)
 
+    import numpy as np
+    import scipy.sparse as sp
     import torch
 
     import rails_tpu_torch
@@ -84,6 +93,17 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     dtype = torch.float64 if args.x64 else torch.float32
+    mesh = None
+    if args.distributed:
+        from rails_tpu_torch.parallel import multihost
+        from rails_tpu_torch.parallel.mesh import make_mesh
+
+        multihost.initialize(args.coordinator, args.num_processes,
+                             args.process_id)
+        mesh = make_mesh() if device.type == "cuda" \
+            else make_mesh(devices=[device])
+        print(f"Distributed run: {multihost.process_count()} processes, "
+              f"{mesh.size} global devices")
     reset_profiles()
     enable_profiling()
     try:
@@ -109,9 +129,54 @@ def main(argv=None) -> int:
             a, m, b = permute_system(a, m, b, perm)
             print(f"RCM reordering: bandwidth {bw0} -> {bandwidth(a)}")
 
-        print("Computing Schur complement")
-        with timer("Driver", "schur"):
-            red = schur_reduce(a, m, b, dtype=dtype, device=device)
+        red = None
+        if mesh is not None:
+            from rails_tpu_torch.parallel.schur_dist import (
+                distribute_schur, pad_system)
+
+            # the mesh needs the dynamic row count divisible by its size:
+            # pad with decoupled stable zero-forced rows when it is not
+            # (deterministic, so --only-eigenvalues reloads stay
+            # consistent; the padded solution block is exactly zero)
+            a, m, b, n_pad = pad_system(a, m, b, mesh.size)
+            if n_pad:
+                print(f"Padded system with {n_pad} decoupled rows for the "
+                      f"{mesh.size}-device mesh")
+            m_sp = sp.csr_matrix(m)
+            mdiag = np.asarray(m_sp.diagonal()).ravel()
+            if np.any(np.abs(mdiag) < 1e-12):
+                # the distributed Schur path, the reference main program's
+                # production configuration
+                print("Computing Schur complement")
+                with timer("Driver", "schur"):
+                    red = schur_reduce(a, m, b, dtype=dtype, device=device)
+                if not args.only_eigenvalues:
+                    aop = distribute_schur(red, mesh, fmt=args.fmt)
+                    msop, bs = red.ms, red.bs
+            else:
+                # the direct path needs a DIAGONAL M (it builds a
+                # DiagonalOperator; dropping off-diagonals would solve
+                # another equation)
+                off_diag = m_sp - sp.diags(mdiag)
+                if off_diag.nnz and abs(off_diag).max() > 1e-14:
+                    raise SystemExit(
+                        "--distributed currently supports diagonal mass "
+                        "matrices only (M has off-diagonal entries; run "
+                        "without --distributed)")
+                if not args.only_eigenvalues:
+                    aop = rails_tpu_torch.sparse_from_scipy(
+                        sp.csr_matrix(a), fmt=args.fmt, dtype=dtype,
+                        device=device)
+                    msop = rails_tpu_torch.DiagonalOperator(
+                        mdiag, is_spd=bool(np.all(mdiag > 0)), device=device)
+                    bs = np.asarray(b.todense()) if sp.issparse(b) \
+                        else np.asarray(b)
+                    if bs.ndim == 1:
+                        bs = bs[:, None]
+        else:
+            print("Computing Schur complement")
+            with timer("Driver", "schur"):
+                red = schur_reduce(a, m, b, dtype=dtype, device=device)
 
         overrides = {}
         if args.tol is not None:
@@ -123,13 +188,23 @@ def main(argv=None) -> int:
 
         v_path = os.path.join(d, "V.mtx")
         t_path = os.path.join(d, "T.mtx")
+        v_dev = None
         if not args.only_eigenvalues:
             print("Creating solver")
-            solver = rails_tpu_torch.LyapunovSolver(
-                red.operator, red.bs, red.ms, options=opts, device=device)
+            if mesh is not None:
+                b_arr = multihost.make_global_array(
+                    torch.as_tensor(bs, dtype=dtype, device=device), mesh)
+                solver = rails_tpu_torch.LyapunovSolver(
+                    aop, b_arr, msop, options=opts, mesh=mesh)
+                print(f"Distributed operator: {type(solver.A).__name__}")
+            else:
+                solver = rails_tpu_torch.LyapunovSolver(
+                    red.operator, red.bs, red.ms, options=opts,
+                    device=device)
             print("Performing solve")
-            print(f"Amount of matrix-vector products before the solve: "
-                  f"{red.mvps}")
+            if red is not None:
+                print(f"Amount of matrix-vector products before the "
+                      f"solve: {red.mvps}")
             v, t, info = solver.solve()
             print(f"Amount of matrix-vector products after the solve: "
                   f"{info.mvps}")
@@ -137,6 +212,7 @@ def main(argv=None) -> int:
             print(f"Solver {outcome} in {info.iter} iterations, "
                   f"relative residual {info.res:.3e}, space size "
                   f"{v.shape[1]}")
+            v_dev = v
             with timer("Driver", "checkpoint"):
                 rio.write_matrix_market(v_path, v)
                 rio.write_matrix_market(t_path, t)
@@ -153,7 +229,21 @@ def main(argv=None) -> int:
 
         print("Computing eigenvalues of the solution operator")
         with timer("Driver", "eigenvalues"):
-            sop = red.solution_operator(v, t)
+            eig_mesh = None
+            if red is None and v_dev is not None:
+                # the distributed direct path: X = (V T) V' over the
+                # solver's V, with eigs on the mesh
+                sop = rails_tpu_torch.LowRankOperator(v_dev @ t, v_dev,
+                                                      device=device)
+                eig_mesh = mesh
+            elif red is None:
+                # the direct path with V reloaded from disk: X = V T V'
+                # applied factored
+                sop = rails_tpu_torch.CallableOperator(
+                    lambda x: v @ (t @ (v.T @ x)), (v.shape[0], v.shape[0]),
+                    is_symmetric=True)
+            else:
+                sop = red.solution_operator(v, t)
             # Anasazi BlockKrylovSchurSolMgr parameter names pass through
             # (the reference forwards the whole "Eigenvalue Solver"
             # sublist, src/Epetra_OperatorWrapper.cpp:163-186)
@@ -165,10 +255,12 @@ def main(argv=None) -> int:
                 block_size=bsz,
                 max_restarts=int(eig_params.get("Maximum Restarts", 100)),
                 subspace=None if nblocks is None else bsz * int(nblocks),
-                dtype=dtype, device=device)
+                dtype=dtype, device=device, mesh=eig_mesh)
 
         with timer("Driver", "trace"):
-            trace = float(red.trace(v, t))
+            # the direct path: tr(V T V') = tr(T) for orthonormal V
+            trace = float(torch.trace(t)) if red is None \
+                else float(red.trace(v, t))
 
         print(f"{'eigenvalue':>20}{'eigenvalue/trace':>20}")
         for lam in evals.detach().cpu().numpy():

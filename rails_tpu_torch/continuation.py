@@ -44,15 +44,12 @@ class ContinuationSolver:
 
     The JAX package shares one engine cache (compiled programs) across
     steps; the port runs eagerly and has no engine cache, so that
-    argument has no counterpart.  ``mesh=`` (a row-sharded solve) is not
-    ported and raises."""
+    argument has no counterpart.  ``mesh``: every step's solver runs
+    row-sharded on it (``LyapunovSolver(mesh=...)``)."""
 
     def __init__(self, b, m=None, options: Optional[SolverOptions] = None,
                  mesh=None, *, device=None, draws=None, **opt_kwargs):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ContinuationSolver(mesh=...) is not ported yet: ROADMAP "
-                "Queue 1, the distributed layer")
+        self.mesh = mesh
         self.b = b
         self.m = m
         self.device = device
@@ -91,8 +88,8 @@ class ContinuationSolver:
         )
         solver = LyapunovSolver(a, b if b is not None else self.b,
                                 m if m is not None else self.m,
-                                options=opts, device=self.device,
-                                draws=self.draws)
+                                options=opts, mesh=self.mesh,
+                                device=self.device, draws=self.draws)
         v, t, info = solver.solve(compiled=compiled)
         self._prev_space = self._truncate_basis(
             v, t, self.options.reduced_size)

@@ -142,13 +142,26 @@ class LyapunovSolver:
     ``b_sign``: optional symmetric (p, p) S making the right-hand side
     B S B' instead of B B'.
     ``draws``: optional random-number hook, see the module docstring.
+    ``mesh``: optional row mesh (``parallel/mesh.py``): A, M and an
+    operator B go through ``parallel.sharded.shard_operator`` with the
+    ``spmm`` strategy, so a DIA, ELL or HYB operator applies through the
+    explicit-halo operators; the solve runs on the mesh's device
+    (``device``, when given, must be that device).
     """
 
     def __init__(self, a, b, m=None, options: Optional[SolverOptions] = None,
-                 *, device=None, draws: Optional[Draws] = None,
-                 b_sign=None, **opt_kwargs):
+                 mesh=None, spmm: str = "auto", *, device=None,
+                 draws: Optional[Draws] = None, b_sign=None, **opt_kwargs):
         self.options = options or SolverOptions(**opt_kwargs)
         opt = self.options
+        self.mesh = mesh
+        if mesh is not None:
+            from rails_tpu_torch.parallel.mesh import canonical_device
+
+            if device is not None and canonical_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"device {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.draws = draws
         self.dtype = self._resolve_dtype(b)
@@ -203,6 +216,17 @@ class LyapunovSolver:
                 "projection method does not make use of this",
                 InverseNotUsedWarning)  # RAILSsolver.m:280-284
         self._check_singular_m()
+        if mesh is not None:
+            from rails_tpu_torch.parallel.sharded import (
+                shard_array_rows, shard_operator)
+
+            self.A = shard_operator(self.A, mesh, spmm=spmm)
+            if self.M is not None:
+                self.M = shard_operator(self.M, mesh, spmm=spmm)
+            if self._b_is_operator:
+                self.B = shard_operator(self.B, mesh, spmm=spmm)
+            else:
+                self._b_array = shard_array_rows(self._b_array, mesh)
 
     def _resolve_dtype(self, b) -> torch.dtype:
         if self.options.dtype is not None:

@@ -97,13 +97,13 @@ def eigs(op: LinearOperator, num: int = 6, *, tol: float = 1e-8,
     new column is A applied to the column b back - which represents
     eigenvalue multiplicity up to b directly (Anasazi's "Block Size").
     ``generator`` draws the random directions; ``device`` (default: the
-    operator's payload device, else ``cuda``) is where the basis lives.
-    ``mesh`` (a row-sharded basis) is not ported and raises.
+    mesh's device, else the operator's payload device, else ``cuda``) is
+    where the basis lives.  ``mesh``: the row mesh the operator applies
+    over (``parallel/mesh.py``); the JAX package places the basis
+    row-sharded on it, which on a one-device mesh needs no placement.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "eigs(mesh=...) is not ported yet: ROADMAP Queue 1, the "
-            "distributed layer")
+    if mesh is not None and device is None:
+        device = mesh.device
     m, dtype, dev, gen = _setup(op, dtype, device, generator)
     num = min(num, m)
     if block_size < 1:

@@ -126,6 +126,11 @@ class SchurReduction:
         a22 = a[self.idx2][:, self.idx2].tocsr()
         self._a_scipy = a
         self._a11_scipy = a11
+        # kept for distribute_schur (parallel/schur_dist.py), which cuts
+        # its per-shard payloads from the host blocks
+        self._a12_scipy = a12
+        self._a21_scipy = a21
+        self._a22_scipy = a22
         kw = dict(fmt=fmt, dtype=self.dtype, device=self.device)
         self.A12 = sparse_from_scipy(a12, **kw)
         self.A21 = sparse_from_scipy(a21, **kw)
@@ -168,6 +173,9 @@ class SchurReduction:
         return out
 
     def _setup_a11(self, a11_solver):
+        self.a11_solver_kind = (
+            a11_solver if isinstance(a11_solver, str) else "custom")
+        self._a11_lu = None  # (lu, piv) when dense_lu; distribute_schur
         if callable(a11_solver):
             self.a11_solve = a11_solver
             self.a11_solve_t = getattr(a11_solver, "transpose_solve", None)
@@ -177,6 +185,7 @@ class SchurReduction:
                 self.a11_solve = self.a11_solve_t = lambda x: x
                 return
             lu, piv = torch.linalg.lu_factor(self._dense(self._a11_scipy))
+            self._a11_lu = (lu, piv)
 
             def lu_apply(x, adjoint):
                 if x.ndim == 1:

@@ -11,6 +11,18 @@ Pallas kernel ``sparse/spmm.py::_dia_spmm_t_impl``); on a CPU tensor it
 runs ``dia_spmm_reference``, the plain PyTorch version.  There is no size
 threshold and no fallback: a CUDA tensor goes to the kernel or raises.
 ``dia_spmm.launches`` counts the kernel's launches.
+
+``dia_spmm_halo(data_loc, offsets_t, x_loc, hl, hh)`` is the same product
+on one row shard of the mesh path (``parallel/halo_spmm.py``), with the
+rows the stencil needs below and above the shard given as halos:
+
+    y[i, c] = sum_d data_loc[d, i] * xe[i + offsets[d], c],
+    xe = [hl; x_loc; hh]  (hl: rows [-span_lo, 0), hh: [m_loc, m_loc + span_hi))
+
+On a CUDA tensor it launches ``csrc/dia_spmm_halo.cu`` (the counterpart
+of the JAX package's ``sparse/spmm.py::_dia_spmm_t_halo_impl``); on a CPU
+tensor it runs ``dia_spmm_halo_reference``.  ``dia_spmm_halo.launches``
+counts its launches.
 """
 
 from __future__ import annotations
@@ -19,7 +31,8 @@ import ctypes
 
 import torch
 
-__all__ = ["dia_spmm", "dia_spmm_reference"]
+__all__ = ["dia_spmm", "dia_spmm_reference", "dia_spmm_halo",
+           "dia_spmm_halo_reference"]
 
 
 def dia_spmm_reference(dia, x: torch.Tensor) -> torch.Tensor:
@@ -100,3 +113,122 @@ def dia_spmm(dia, x: torch.Tensor) -> torch.Tensor:
 
 
 dia_spmm.launches = 0
+
+
+def _span(h) -> int:
+    return 0 if h is None else int(h.shape[0])
+
+
+def dia_spmm_halo_reference(data_loc: torch.Tensor, offsets_t: torch.Tensor,
+                            x_loc: torch.Tensor, hl, hh,
+                            out=None) -> torch.Tensor:
+    """The plain version: one slice-multiply-add per diagonal, in offset
+    order, over the extended operand [hl; x_loc; hh] (``None`` for an
+    empty halo).  Terms outside the extended rows are dropped."""
+    m, s = x_loc.shape
+    lo = _span(hl)
+    xe = torch.cat([h for h in (hl, x_loc, hh) if h is not None])
+    ext = xe.shape[0]
+    y = torch.zeros((m, s), dtype=x_loc.dtype, device=x_loc.device) \
+        if out is None else out.zero_()
+    for idx, off in enumerate(offsets_t.tolist()):
+        a, b = max(0, -lo - off), min(m, ext - lo - off)
+        if b <= a:
+            continue
+        y[a:b] += data_loc[idx, a:b, None] * xe[a + lo + off:b + lo + off]
+    return y
+
+
+_HALO_SYMBOLS = {torch.float32: "rails_dia_spmm_halo_f32",
+                 torch.float64: "rails_dia_spmm_halo_f64"}
+_HALO_FNS = {}
+
+
+def _halo_kernel_fn(dtype):
+    """The halo kernel's C entry point for ``dtype``; builds and loads at
+    first use."""
+    fn = _HALO_FNS.get(dtype)
+    if fn is None:
+        from rails_tpu_torch import _build
+
+        fn = getattr(_build.load("dia_spmm_halo"), _HALO_SYMBOLS[dtype])
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        _HALO_FNS[dtype] = fn
+    return fn
+
+
+def dia_spmm_halo(data_loc: torch.Tensor, offsets_t: torch.Tensor,
+                  x_loc: torch.Tensor, hl, hh, out=None) -> torch.Tensor:
+    """y = A_loc @ [hl; x_loc; hh] for one row shard: ``data_loc`` (d,
+    m_loc), ``offsets_t`` (d,) int32, ``x_loc`` (m_loc, s), ``hl``
+    (span_lo, s) and ``hh`` (span_hi, s), ``None`` where a span is 0.
+    Offsets are expected within [-span_lo, span_hi]; terms outside the
+    extended rows are dropped.  ``out``: optional (m_loc, s) tensor to
+    write y into (a shard's rows of a global y).  CPU tensors: the plain
+    version.  CUDA tensors: the kernel, after checking device, dtype,
+    shape and contiguity."""
+    if x_loc.device.type == "cpu":
+        return dia_spmm_halo_reference(data_loc, offsets_t, x_loc, hl, hh,
+                                       out)
+    if x_loc.device.type != "cuda":
+        raise ValueError(f"dia_spmm_halo: unsupported device {x_loc.device}")
+    if x_loc.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x_loc.device):
+            return dia_spmm_halo(data_loc, offsets_t, x_loc, hl, hh, out)
+    if x_loc.dtype not in _HALO_SYMBOLS:
+        raise TypeError(f"dia_spmm_halo kernel takes float32 or float64, "
+                        f"got {x_loc.dtype}")
+    if x_loc.ndim != 2:
+        raise ValueError(f"dia_spmm_halo: x_loc must be (m_loc, s), got "
+                         f"{tuple(x_loc.shape)}")
+    m, s = x_loc.shape
+    d = offsets_t.shape[0]
+    if offsets_t.dtype != torch.int32 or offsets_t.ndim != 1:
+        raise TypeError("dia_spmm_halo: offsets_t must be a 1-D int32 tensor")
+    if tuple(data_loc.shape) != (d, m):
+        raise ValueError(f"dia_spmm_halo: data_loc {tuple(data_loc.shape)} "
+                         f"!= ({d}, {m})")
+    if out is None:
+        out = torch.empty((m, s), dtype=x_loc.dtype, device=x_loc.device)
+    args = {"data_loc": data_loc, "x_loc": x_loc, "out": out}
+    for name, h in (("hl", hl), ("hh", hh)):
+        if h is not None:
+            if h.ndim != 2 or h.shape[1] != s:
+                raise ValueError(f"dia_spmm_halo: {name} "
+                                 f"{tuple(h.shape)} is not (span, {s})")
+            args[name] = h
+    for name, t in args.items():
+        if t.dtype != x_loc.dtype:
+            raise TypeError(f"dia_spmm_halo: {name} {t.dtype} != x_loc "
+                            f"{x_loc.dtype}")
+        if t.device != x_loc.device:
+            raise ValueError(f"dia_spmm_halo: {name} on {t.device}, x_loc "
+                             f"on {x_loc.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"dia_spmm_halo: {name} must be contiguous")
+    if tuple(out.shape) != (m, s):
+        raise ValueError(f"dia_spmm_halo: out {tuple(out.shape)} != "
+                         f"({m}, {s})")
+    if offsets_t.device != x_loc.device or not offsets_t.is_contiguous():
+        raise ValueError("dia_spmm_halo: offsets_t must be contiguous on "
+                         "x_loc's device")
+    if m == 0 or s == 0:
+        return out
+    lo, hi = _span(hl), _span(hh)
+    fn = _halo_kernel_fn(x_loc.dtype)
+    rc = fn(data_loc.data_ptr(), offsets_t.data_ptr(), d, x_loc.data_ptr(),
+            hl.data_ptr() if lo else None, hh.data_ptr() if hi else None,
+            out.data_ptr(), m, lo, hi, s,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dia_spmm_halo kernel launch failed: "
+                           f"cudaError {rc}")
+    dia_spmm_halo.launches += 1
+    return out
+
+
+dia_spmm_halo.launches = 0

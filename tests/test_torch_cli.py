@@ -105,8 +105,11 @@ class TestCli:
         assert _table(out).shape == (3, 2)
 
     def test_distributed_raises(self, dae_dir):
+        """--distributed runs in one process (tests/test_torch_schur_dist.py);
+        more than one process raises."""
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main([str(dae_dir / "port"), "--distributed"])
+            cli.main([str(dae_dir / "port"), "--device", "cpu",
+                      "--distributed", "--num-processes", "2"])
 
 
 class TestIo:

@@ -137,5 +137,8 @@ def test_save_load_round_trip(tmp_path):
 
 
 def test_mesh_raises():
+    """A mesh over more than one distinct device is not ported (one
+    device: tests/test_torch_mesh.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.ContinuationSolver(np.ones((4, 1)), mesh=object())
+        rt.ContinuationSolver(np.ones((4, 1)), mesh=rt.make_mesh(
+            devices=["cpu", "meta"]))

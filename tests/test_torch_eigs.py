@@ -87,8 +87,10 @@ class TestEigs:
             _, _, info = eigs(opt, num=6, tol=1e-14, max_restarts=1,
                               subspace=10, return_info=True)
         assert not info.converged and info.residuals.shape == (6,)
+        # a mesh over more than one distinct device is not ported
+        from rails_tpu_torch.parallel.mesh import make_mesh
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eigs(opt, num=2, mesh=object())
+            eigs(opt, num=2, mesh=make_mesh(devices=["cpu", "meta"]))
 
     def test_generator_is_used(self, rng):
         a = rng.uniform(-1, 1, (80, 80))

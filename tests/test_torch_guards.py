@@ -28,7 +28,10 @@ def test_import_pulls_in_no_jax():
             "rails_tpu_torch.models.problems, rails_tpu_torch._build, "
             "rails_tpu_torch.profile_solve, rails_tpu_torch.refine, "
             "rails_tpu_torch.continuation, rails_tpu_torch.sparse.wide_spmm, "
-            "rails_tpu_torch.utils.compensated\n"
+            "rails_tpu_torch.utils.compensated, rails_tpu_torch.cli, "
+            "rails_tpu_torch.parallel.sharded, "
+            "rails_tpu_torch.parallel.schur_dist, "
+            "rails_tpu_torch.parallel.multihost\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'rails_tpu.')) or "
             "m == 'rails_tpu')\n"
@@ -69,6 +72,7 @@ def no_card(monkeypatch):
     lambda: interop.rhs(np.ones((4, 1))),
     lambda: rt.solve_refined(-np.eye(4), np.ones((4, 1))),
     lambda: rt.ContinuationSolver(np.ones((4, 1))).step(-np.eye(4)),
+    lambda: rt.make_mesh(),
 ])
 def test_default_device_is_cuda_and_raises_without_card(no_card, entry):
     with pytest.raises(RuntimeError, match="no CUDA device|is_available"):
