@@ -48,11 +48,12 @@ exits nonzero and never prints the last line):
               the card (max|dy| <= 1e-5 max|y|), and both against the
               exact float64 ELL product within the JAX tests' bounds
               (8e-5 max|y| at 3 passes, 5e-7 at 6): the continuation
-              Jacobian (side 128) at s = 192, 200, 256 and 3 and 6
+              Jacobian (side 128) at s = 8, 192, 200, 256, 300 and 3 and 6
               passes; the JAX bench's ELL geometry at s = 192 (its 6-pass
               planes must be refused by the 4 GB cap); a rectangular
               matrix with empty rows, window built at min_s = 1, at
-              s = 3 and 67; one apply through the operator's dispatch.
+              s = 1, 3, 8 and 67; a band of +-900 (w = 2048) at s = 200;
+              one apply through the operator's dispatch.
 9. timing_wide - the wide kernel's times beside its bound (bytes over
               3.35 TB/s or its operations over the bf16 peak), its plain
               version, the ELL kernel on the same payload and s, and
@@ -1087,7 +1088,7 @@ def run_wide_phases(torch, rt, spmm, em, wm, refine_mod, smi, gen, only):
         t0 = time.perf_counter()
         rows = []
         for passes in (3, 6):
-            for s in (192, 200, 256):
+            for s in (8, 192, 200, 256, 300):
                 rows.append(compare_wide_case(
                     torch, wm, em, "continuation side 128", cont,
                     cont_w[passes], s, gen))
@@ -1103,10 +1104,19 @@ def run_wide_phases(torch, rt, spmm, em, wm, refine_mod, smi, gen, only):
                                 fmt="ell", dtype=f32)
         for passes in (3, 6):
             odd_w = wm.build_wide_window(odd.fwd, passes=passes, min_s=1)
-            for s in (3, 67):
+            for s in (1, 3, 8, 67):
                 rows.append(compare_wide_case(
                     torch, wm, em, "odd: rectangular, empty rows", odd.fwd,
                     odd_w, s, gen))
+        # the widest window the payload takes: w = 2048
+        band = sparse_from_scipy(banded_ell(4096, 4096, 6, 900, 0, seed=2),
+                                 fmt="ell", dtype=f32).fwd
+        for passes in (3, 6):
+            band_w = wm.build_wide_window(band, passes=passes)
+            if band_w is None or band_w.w != 2048:
+                raise AssertionError("the band-900 window is not 2048 wide")
+            rows.append(compare_wide_case(torch, wm, em, "band 900, w=2048",
+                                          band, band_w, 200, gen))
         # an apply through the operator dispatches to the kernel
         odd.fwd.wide = odd_w
         before = wm.wide_spmm.launches

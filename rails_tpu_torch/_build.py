@@ -11,7 +11,7 @@ uses only the sources in this checkout and the installed CUDA toolkit
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits
 for them; it returns each kernel's build seconds and ``-Xptxas -v``
-lines (registers, shared memory, spills).
+lines (registers, stack, spills).
 """
 
 from __future__ import annotations
@@ -102,7 +102,7 @@ def _ptxas_lines(log: Path):
     if not log.is_file():
         return []
     return [ln.strip() for ln in log.read_text().splitlines()
-            if "ptxas" in ln]
+            if "ptxas" in ln or "spill" in ln]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -32,6 +32,26 @@ and runs ``wide_spmm_reference`` on a CPU tensor; a CUDA tensor goes to
 the kernel or raises.  ``wide_spmm.launches`` counts the kernel's
 launches.  Dispatch from ``ell_spmm`` happens on a CUDA tensor only, for
 a payload carrying a window and x float32 with s >= ``min_s`` columns.
+
+The kernel replaces the TPU kernel ``_wide_spmm_t_impl``
+(rails_tpu/sparse/wide_spmm.py:136, pallas_call at :199).  Its bound is
+bytes: the planes read once, x read and y written once (``wide_work``):
+15.3 us at the continuation shape (m = 16384, w = 384, s = 200, three
+passes; 19.1 us at six) and 1.92 ms at the bench shape (m = 2^21,
+w = 384, s = 192, three passes) on an H100 at 3.35 TB/s.  It treats each
+chunk as a GEMM D (128 x s) = P^T (128 x w) X (w x s) per pass term on
+the tensor cores (bf16 ``mma.sync`` from shared memory, float32 sums),
+skipping window steps whose plane fragments are zero; it stages the
+planes and x with ``cp.async`` while the previous tile multiplies,
+splits x to bf16 in shared memory, and covers a chunk with adjacent
+blocks of up to 256 columns (three passes) or 128 (six)
+(``wide_tiling``, ``wide_blocks``), so that its planes come from device
+memory once and from L2 after.  At six passes the leading term xh Ph
+sums in its own accumulator apart from the correction terms: the tensor
+cores truncate their float32 sums, and kept apart the small terms'
+truncation is 2^8 smaller than the leading sum's ulp; the two are added
+once, round-to-nearest, which keeps six passes within 5e-7 max|y| of
+the exact product.  Three passes (bound 8e-5) use one accumulator.
 """
 
 from __future__ import annotations
@@ -44,8 +64,8 @@ import torch
 
 from rails_tpu_torch.utils.dtypes import full_precision
 
-__all__ = ["WideWindow", "build_wide_window", "wide_spmm",
-           "wide_spmm_reference", "wide_work"]
+__all__ = ["WideWindow", "build_wide_window", "wide_blocks", "wide_spmm",
+           "wide_spmm_reference", "wide_tiling", "wide_work"]
 
 CHUNK = 128
 MIN_S_DEFAULT = 192           # the JAX package's dispatch threshold
@@ -230,6 +250,34 @@ def wide_spmm_reference(wide: WideWindow, x: torch.Tensor,
     return out[:m]
 
 
+TILE_MAX = {3: 256, 6: 128}   # widest column tile of the kernel (NT)
+K_TILE = 32                   # window rows per K-tile of the kernel (BK)
+
+
+def wide_tiling(s: int, passes: int = 3) -> Tuple[int, int]:
+    """The kernel's column tiles at ``s`` columns: (tw, nct), tiles of
+    width tw (a multiple of 8, the mma's n; at most 256 at three passes,
+    128 at six, whose leading term keeps a second accumulator) as even
+    as that allows, so that no more than the last 8-column group of s is
+    padding: 200 at six passes -> (104, 2) covers 104 + 96."""
+    if s <= 0:
+        raise ValueError(f"wide_tiling: s must be positive, got {s}")
+    cap = TILE_MAX[passes]
+    nct = -(-s // cap)
+    tw = -(-(-(-s // nct)) // 8) * 8
+    return tw, -(-s // tw)
+
+
+def wide_blocks(nb: int, s: int, passes: int = 3):
+    """The kernel's blocks in launch order (block id = chunk * nct +
+    column tile, the tile fastest) as (chunk, col0, col1): a chunk's
+    column tiles are adjacent, so all but the first read its planes from
+    L2."""
+    tw, nct = wide_tiling(s, passes)
+    return [(i // nct, (i % nct) * tw, min(s, (i % nct + 1) * tw))
+            for i in range(nb * nct)]
+
+
 _FN = []
 
 
@@ -243,7 +291,8 @@ def _kernel_fn():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
         _FN.append(fn)
     return _FN[0]
 
@@ -273,6 +322,9 @@ def wide_spmm(wide: WideWindow, x: torch.Tensor) -> torch.Tensor:
                              f"{x.device}")
         if not t.is_contiguous():
             raise ValueError("wide_spmm: payload must be contiguous")
+    if wide.w % K_TILE or any(p.data_ptr() % 16 for p in planes):
+        raise ValueError(f"wide_spmm kernel takes w a multiple of {K_TILE} "
+                         f"and 16-byte aligned planes, got w={wide.w}")
     if not x.is_contiguous():
         raise ValueError("wide_spmm: x must be contiguous")
     s = x.shape[1]
@@ -282,7 +334,8 @@ def wide_spmm(wide: WideWindow, x: torch.Tensor) -> torch.Tensor:
     p3 = 0 if wide.p3 is None else wide.p3.data_ptr()
     rc = _kernel_fn()(wide.c0.data_ptr(), wide.p_hi.data_ptr(),
                       wide.p_lo.data_ptr(), p3, wide.w,
-                      wide.c0.shape[0], x.data_ptr(), n, m, s, y.data_ptr(),
+                      wide.c0.shape[0], x.data_ptr(), n, m, s,
+                      wide_tiling(s, wide.passes)[0], y.data_ptr(),
                       torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wide_spmm kernel launch failed: cudaError {rc}")

@@ -31,7 +31,8 @@ def test_import_pulls_in_no_jax():
             "rails_tpu_torch.utils.compensated, rails_tpu_torch.cli, "
             "rails_tpu_torch.parallel.sharded, "
             "rails_tpu_torch.parallel.schur_dist, "
-            "rails_tpu_torch.parallel.multihost\n"
+            "rails_tpu_torch.parallel.multihost, "
+            "rails_tpu_torch.kernel_ablation\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'rails_tpu.')) or "
             "m == 'rails_tpu')\n"

@@ -30,7 +30,7 @@ from rails_tpu.sparse.wide_spmm import wide_spmm_t
 from rails_tpu_torch import interop
 from rails_tpu_torch.sparse import ell_spmm as em
 from rails_tpu_torch.sparse import wide_spmm as wm
-from rails_tpu_torch.sparse.formats import sparse_from_scipy
+from rails_tpu_torch.sparse.formats import EllMatrix, sparse_from_scipy
 from test_torch_ell import banded_random
 
 torch.set_num_threads(1)
@@ -213,6 +213,53 @@ def test_cpu_apply_never_dispatches_wide(rng):
     assert wm.wide_spmm.launches == w0
 
 
+def _check_tiling(s, passes):
+    tw, nct = wm.wide_tiling(s, passes)
+    assert tw % 8 == 0 and 8 <= tw <= wm.TILE_MAX[passes]
+    tiles = [(t * tw, min(s, (t + 1) * tw)) for t in range(nct)]
+    assert all(c1 > c0 for c0, c1 in tiles)
+    assert np.array_equal(np.concatenate([np.arange(c0, c1)
+                                          for c0, c1 in tiles]),
+                          np.arange(s))
+    assert sum(-(-(c1 - c0) // 8) for c0, c1 in tiles) == -(-s // 8)
+    return tw, nct
+
+
+@pytest.mark.parametrize("s,passes,tiles", [
+    (1, 3, (8, 1)), (8, 6, (8, 1)), (67, 6, (72, 1)), (192, 3, (192, 1)),
+    (200, 3, (200, 1)), (200, 6, (104, 2)), (256, 6, (128, 2)),
+    (300, 3, (152, 2)), (300, 6, (104, 3))])
+def test_tiling_covers_each_column_once(s, passes, tiles):
+    """The kernel's column tiles: a multiple of 8 (the mma's n), at most
+    256 wide at three passes and 128 at six, every column in exactly one
+    tile, and no more padding than rounding s up to 8 (s = 200 runs 25
+    n8 tiles, not 26 or 32)."""
+    assert _check_tiling(s, passes) == tiles
+
+
+@pytest.mark.parametrize("passes", [3, 6])
+def test_tiling_every_width(passes):
+    for s in range(1, 2049):
+        _check_tiling(s, passes)
+
+
+@pytest.mark.parametrize("nb,s,passes", [(1, 1, 3), (3, 200, 6),
+                                         (5, 67, 3), (128, 200, 6),
+                                         (7, 300, 3), (4, 600, 6)])
+def test_blocks_adjacent_per_chunk(nb, s, passes):
+    """In launch order a chunk's column tiles are adjacent and cover its
+    s columns once, chunk after chunk."""
+    blocks = wm.wide_blocks(nb, s, passes)
+    _, nct = wm.wide_tiling(s, passes)
+    assert len(blocks) == nb * nct
+    chunks = [b for b, _, _ in blocks]
+    assert chunks == sorted(chunks)
+    for b in range(nb):
+        mine = [(c0, c1) for bb, c0, c1 in blocks if bb == b]
+        assert [c for c0, c1 in mine for c in range(c0, c1)] == list(
+            range(s))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -223,7 +270,11 @@ def cuda_device():
 @pytest.mark.cuda
 class TestKernelOnCard:
     """The CUDA kernel against its plain version on the card: 1e-5 of
-    max|y| (the same exact products, float32 sums in another order)."""
+    max|y| (the same exact products, float32 sums in another order).
+    The cases hit the kernel's tiling: s from 1 to 300 (one partial n8
+    tile, 56-wide tiles at 200, five tiles at 300), w = 128 and 2048,
+    n not a multiple of 128 with window rows past n, rectangular
+    matrices with empty rows, three and six passes."""
 
     @pytest.mark.parametrize("m,n,ell_l,band,empty,s,passes", [
         (4096, 4096, 5, 100, 0, 200, 3),
@@ -231,6 +282,15 @@ class TestKernelOnCard:
         (1111, 700, 6, 40, 150, 67, 3),
         (1111, 700, 6, 40, 150, 3, 6),
         (1000, 1300, 7, 300, 0, 192, 6),
+        (1000, 1000, 3, 0, 0, 1, 3),            # w = 128, rows past n
+        (1000, 1000, 3, 0, 0, 8, 6),
+        (4096, 4096, 6, 900, 0, 300, 6),        # w = 2048
+        (4096, 4096, 6, 900, 0, 67, 3),
+        (2000, 1900, 5, 60, 100, 200, 6),       # rows past n, empty rows
+        (2000, 1900, 5, 60, 100, 300, 3),
+        (1111, 700, 6, 40, 150, 1, 6),
+        (1111, 700, 6, 40, 150, 8, 3),
+        (1000, 1300, 7, 300, 0, 192, 3),
     ])
     def test_matches_reference(self, rng, cuda_device, m, n, ell_l, band,
                                empty, s, passes):
@@ -247,6 +307,33 @@ class TestKernelOnCard:
         ref = wm.wide_spmm_reference(wide, x)
         assert (y - ref).abs().max().item() <= \
             1e-5 * ref.abs().max().item()
+
+    @pytest.mark.parametrize("kind,s", [("continuation", 200),
+                                        ("continuation", 256),
+                                        ("banded", 192)])
+    def test_six_passes_within_exact_bound(self, rng, cuda_device, kind, s):
+        """The 6-pass kernel against the exact float64 product of the
+        float32 ELL payload at the JAX tests' 5e-7 max|y|: the tensor
+        cores' truncated float32 sums must not eat the bound."""
+        if kind == "continuation":     # bench.py's Jacobian, theta 0.05
+            side = 64
+            a = (sp.kron(sp.eye(side), sp.diags([1.0, -4.05, 1.0],
+                                                [-1, 0, 1], (side, side)))
+                 + sp.kron(sp.diags([1.0, 1.0], [-1, 1], (side, side)),
+                           sp.eye(side))).tocsr()
+        else:
+            a = banded_random(rng, 3000, 7, 200, n=2900, empty_rows=30)
+        op = sparse_from_scipy(a, fmt="ell", dtype=torch.float32,
+                               device=cuda_device)
+        wide = wm.build_wide_window(op.fwd, passes=6)
+        x = torch.from_numpy(rng.uniform(-1, 1, (a.shape[1], s)).astype(
+            np.float32)).to(cuda_device)
+        y = wm.wide_spmm(wide, x)
+        exact = em.ell_spmm_reference(
+            EllMatrix(op.fwd.indices, op.fwd.values.double(),
+                         op.fwd.shape), x.double())
+        assert (y.double() - exact).abs().max().item() <= \
+            5e-7 * exact.abs().max().item()
 
     def test_dispatch_launches_wide_or_ell(self, rng, cuda_device):
         a = banded_random(rng, 2048, 5, 60)
@@ -277,3 +364,16 @@ class TestKernelOnCard:
         monkeypatch.setattr(_build, "load", broken)
         with pytest.raises(RuntimeError, match="build failed"):
             op.matmat(torch.ones(1024, 200, device=cuda_device))
+
+
+def test_ablation_cuts_match_the_kernel_source():
+    """``kernel_ablation`` cuts parts of the kernel by text substitution;
+    each cut must still find its text in ``csrc/wide_spmm.cu``."""
+    from rails_tpu_torch import _build, kernel_ablation
+
+    src = _build.sources()["wide_spmm"].read_text()
+    assert set(kernel_ablation.CUTS) == {
+        "kernel", "no_mma", "no_mma_no_x", "no_mma_no_planes"}
+    for subs in kernel_ablation.CUTS.values():
+        for old, _ in subs:
+            assert src.count(old) == 1, old
