@@ -20,12 +20,22 @@ exits nonzero and never prints the last line):
               band +-64, s=16), the side-256 Laplacian DAE's A22, A12 and
               A21 at s = 1, 8, 16, and a rectangular matrix with empty
               rows at m = 1111, s = 3; one HYB apply (the DAE's A11 under
-              'auto') against its plain version.
+              'auto') against its plain version.  Each ELL row gives the
+              kernel's plan from the payload, computed on the host: the
+              share of row tiles whose x window is staged in shared
+              memory, the lane width, column tile and shared bytes.
 4. timing   - CUDA-event times of each kernel, its plain version and
               torch.sparse.mm on a CSR copy (a yardstick only), each
               averaged over many launches that rotate through enough
               input copies to find them outside the 50 MB L2; beside the
-              bound: the larger of bytes / 3.35 TB/s and flops / peak.
+              bound: the larger of bytes / 3.35 TB/s and flops / peak,
+              and the launch floor (torch.cuda._sleep(1) timed the same
+              way).  DIA: the solve shapes, the bench geometry and
+              refined_scale's (n = 65,536, s = 8, f32).  ELL: A22 (f64,
+              s = 8), the bench geometry (s = 16), the continuation
+              shape (f32, s = 200) and an interior shard of mesh_ell
+              (m_loc 4,096 over 4,352 columns, f64, s = 8), with their
+              staged shares.
 5. solve_f32 - the JAX bench's phase_solve problem, n=4096 float32.
 6. solve_f64 - the JAX bench's phase_scale problem, n=65536, solved
               plainly at float64 (the real size), then a profiled rerun of
@@ -76,7 +86,9 @@ exits nonzero and never prints the last line):
 
 13. compare_halo - the halo kernel (#3) against its plain version on the
               card, max|dy| <= 1e-5 max|y| at float32, 1e-12 max|y| at
-              float64: the solve stencil (m=65536, offsets 0, +-1, +-256)
+              float64, its offsets by value (as the mesh apply passes
+              them) and from the device array, the two bit-equal: the
+              solve stencil (m=65536, offsets 0, +-1, +-256)
               cut into 4 shards on cuda:0 at s = 1, 6, 8, 16 - an interior
               shard, both boundary shards, and a one-sided stencil with an
               empty halo; the JAX bench's mesh geometry (side 1536, s=16,
@@ -87,7 +99,8 @@ exits nonzero and never prints the last line):
               solve's shard (m_loc=16384, spans 256, s=8, f64) and the
               bench mesh geometry's shard (m_loc=589824, spans 1536, s=16,
               f32), beside its plain version, torch.sparse.mm on a CSR copy
-              of the shard's (m_loc x ext) operator, and the bound;
+              of the shard's (m_loc x ext) operator, the bound and the
+              launch floor;
               halo_overhead_vs_plain: HaloDiaOperator.matmat at 1 and 4
               shards over the DIA kernel's apply (bench geometry), and
               HaloEllOperator.matmat at 4 shards over the ELL kernel's
@@ -197,6 +210,28 @@ def time_ms(torch, fn, arg_sets, reps, backlog=True):
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def launch_floor_ms(torch, reps=400):
+    """The per-launch floor: ``torch.cuda._sleep(1)`` (a kernel that spins
+    for one cycle) timed as ``time_ms`` times a kernel, with its backlog -
+    what the card takes per launch of a kernel that does no work."""
+    return time_ms(torch, torch.cuda._sleep, [(1,)], reps)
+
+
+def ell_staging(em, ell, s, itemsize):
+    """The ELL kernel's plan for ``ell`` at s columns (x and y aligned),
+    computed on the host from the payload's row-tile windows: the share
+    of row tiles whose window of x is staged in shared memory, the lane
+    width, the column tile and the shared bytes per block for the window
+    and for the slots."""
+    from rails_tpu_torch.sparse.tiling import vector_width
+
+    p = em.ell_plan(ell.window_rows, ell.indices.shape[1], s, itemsize,
+                    vector_width(s, itemsize, 0))
+    return {"staged_share": p.staged_share, "vec": p.vec,
+            "col_tile": p.col_tile, "col_tiles": p.col_tiles,
+            "window_bytes": p.window_bytes, "slot_bytes": p.slot_bytes}
 
 
 def csr_of(torch, payload):
@@ -374,30 +409,33 @@ def compare_ell_case(torch, em, label, op, s, gen):
     row = {"case": label, "m": op.shape[0], "n": op.shape[1],
            "L": int(op.fwd.indices.shape[1]), "s": s, "dtype": name,
            "max_abs_err": err, "max_abs_y": scale,
-           "ok": err <= TOL[name] * scale}
+           "ok": err <= TOL[name] * scale,
+           **ell_staging(em, op.fwd, s, x.element_size())}
     if not row["ok"]:
         raise AssertionError(f"ell_spmm disagrees with its plain version: "
                              f"{row}")
     return row
 
 
-def timing_ell_case(torch, em, label, op, s, gen, reps):
-    """Times of ``op``'s ELL product, rotating through copies of its
-    payload and of x."""
+def timing_ell_case(torch, em, label, ell, s, gen, reps, floor):
+    """Times of the ELL payload ``ell``'s product, rotating through copies
+    of the payload and of x, beside the launch floor and the share of row
+    tiles the kernel stages."""
     from rails_tpu_torch.sparse.formats import EllMatrix
 
-    dtype = op.payload_dtype
+    dtype = ell.values.dtype
     name = str(dtype).replace("torch.", "")
     itemsize = torch.empty((), dtype=dtype).element_size()
-    nbytes, flops = ell_work(op.fwd, s, itemsize)
-    sets = [(EllMatrix(op.fwd.indices.clone(), op.fwd.values.clone(),
-                       op.shape),
-             random_x(torch, op.shape[1], s, dtype, gen))
-            for _ in range(n_copies(nbytes + op.shape[0] * s * itemsize))]
+    nbytes, flops = ell_work(ell, s, itemsize)
+    m, n = ell.shape
+    sets = [(EllMatrix(ell.indices.clone(), ell.values.clone(), ell.shape),
+             random_x(torch, n, s, dtype, gen))
+            for _ in range(n_copies(nbytes + m * s * itemsize))]
     row = time_kernel(torch, label, em.ell_spmm, em.ell_spmm_reference,
                       sets, nbytes, flops, name, reps)
-    row.update({"m": op.shape[0], "n": op.shape[1],
-                "L": int(op.fwd.indices.shape[1]), "s": s})
+    row.update({"m": m, "n": n, "L": int(ell.indices.shape[1]), "s": s,
+                "launch_floor_ms": floor,
+                **ell_staging(em, ell, s, itemsize)})
     return row
 
 
@@ -687,6 +725,7 @@ def timing_wide_case(torch, wm, em, label, ell, wide, s, gen, reps):
     ell_sets = [(e, x) for _, e, x in trips]
     ell_ms = time_ms(torch, em.ell_spmm, ell_sets, reps)
     ell_b_ms, ell_b_by = bound_ms(ell_bytes, ell_flops, "float32")
+    row["ell_staging"] = ell_staging(em, ell, s, 4)
     row.update({"m": ell.shape[0], "n": ell.shape[1], "w": wide.w,
                 "passes": wide.passes, "s": s, "ell_ms": ell_ms,
                 "ell_bound_ms": ell_b_ms, "ell_bound_by": ell_b_by,
@@ -906,6 +945,18 @@ def run_continuation_wide(torch, rt, em, wm):
     return out
 
 
+def mesh_ell_shard(torch, rt):
+    """An interior shard's ELL payload of mesh_ell (the continuation
+    Jacobian at theta 0, side 128, f64, 4 shards): m_loc 4,096 rows over
+    its halos and own rows (4,096 + 2 x 128 columns), L = 5."""
+    from rails_tpu_torch.parallel.halo_ell import build_halo_ell
+
+    op = rt.sparse_from_scipy(continuation_jacobian(CONT_SIDE, 0.0),
+                              fmt="ell", dtype=torch.float64)
+    h = build_halo_ell(op.fwd, rt.make_mesh(devices=["cuda:0"] * MESH_ND))
+    return h.shards[1]
+
+
 OPTS64 = dict(tol=1e-4, expand=8, restart_size=160, reduced_size=80,
               maxit=3000)   # solve_f64 and mesh_solve
 
@@ -984,6 +1035,7 @@ def run_earlier_phases(torch, rt, spmm, em, smi, gen):
 
     # ---- 4. timing
     t0 = time.perf_counter()
+    floor = launch_floor_ms(torch)
     timings = [
         timing_case(torch, spmm, "slice f64 n=65536 s=8", 65536,
                     (-256, -1, 0, 1, 256), 8, f64, gen, 400),
@@ -991,20 +1043,33 @@ def run_earlier_phases(torch, rt, spmm, em, smi, gen):
                     (-64, -1, 0, 1, 64), 6, f32, gen, 400),
         timing_case(torch, spmm, "bench f32 side=1536 s=16", 1536 * 1536,
                     (-1536, -1, 0, 1, 1536), 16, f32, gen, 50),
+        timing_case(torch, spmm, "refined_scale f32 n=65536 s=8", 65536,
+                    (-256, -1, 0, 1, 256), 8, f32, gen, 400),
     ]
-    emit({"phase": "timing", "cases": timings, "smi": smi,
-          "wall_s": time.perf_counter() - t0})
+    for r in timings:
+        r["launch_floor_ms"] = floor
+    emit({"phase": "timing", "cases": timings, "launch_floor_ms": floor,
+          "smi": smi, "wall_s": time.perf_counter() - t0})
 
     # ---- 4b. timing of the ELL kernel
     t0 = time.perf_counter()
+    floor = launch_floor_ms(torch)
     ell_timings = [
-        timing_ell_case(torch, em, "slice A22 f64 s=8", ell_ops["A22"], 8,
-                        gen, 400),
+        timing_ell_case(torch, em, "slice A22 f64 s=8",
+                        ell_ops["A22"].fwd, 8, gen, 400, floor),
         timing_ell_case(torch, em, "bench f32 m=2^21 L=8 s=16",
-                        ell_ops["bench"].astype(f32), 16, gen, 50),
+                        ell_ops["bench"].astype(f32).fwd, 16, gen, 50,
+                        floor),
+        timing_ell_case(torch, em, "continuation f32 side 128 s=200",
+                        sparse_from_scipy(continuation_jacobian(
+                            CONT_SIDE, 0.05), fmt="ell", dtype=f32).fwd,
+                        200, gen, 200, floor),
+        timing_ell_case(torch, em, "mesh_ell shard f64 s=8",
+                        mesh_ell_shard(torch, rt), 8, gen, 400, floor),
     ]
     del ell_ops
-    emit({"phase": "timing_ell", "cases": ell_timings, "smi": smi,
+    emit({"phase": "timing_ell", "cases": ell_timings,
+          "launch_floor_ms": floor, "smi": smi,
           "wall_s": time.perf_counter() - t0})
 
     # ---- 5. solve f32, n=4096 (phase_solve)
@@ -1196,8 +1261,12 @@ def halo_shard(torch, data, offsets, x, r, nd):
 
 
 def compare_halo_case(torch, spmm, label, args):
-    """The halo kernel against its plain version on one shard's inputs."""
-    y = spmm.dia_spmm_halo(*args)
+    """The halo kernel against its plain version on one shard's inputs,
+    its offsets by value (as the mesh apply passes them) and from the
+    device array; the two launches must agree bit for bit."""
+    offsets = args[1].tolist()
+    y = spmm.dia_spmm_halo(*args, offsets=offsets)
+    y_dev = spmm.dia_spmm_halo(*args)
     torch.cuda.synchronize()
     ref = spmm.dia_spmm_halo_reference(*args)
     err = (y - ref).abs().max().item()
@@ -1205,14 +1274,15 @@ def compare_halo_case(torch, spmm, label, args):
     x_loc, hl, hh = args[2], args[3], args[4]
     name = str(x_loc.dtype).replace("torch.", "")
     row = {"case": label, "m_loc": x_loc.shape[0], "s": x_loc.shape[1],
-           "offsets": args[1].tolist(), "dtype": name,
+           "offsets": offsets, "dtype": name,
            "span_lo": 0 if hl is None else hl.shape[0],
            "span_hi": 0 if hh is None else hh.shape[0],
            "max_abs_err": err, "max_abs_y": scale,
-           "ok": err <= TOL[name] * scale}
-    if not row["ok"]:
+           "ok": err <= TOL[name] * scale,
+           "offset_paths_equal": bool(torch.equal(y, y_dev))}
+    if not row["ok"] or not row["offset_paths_equal"]:
         raise AssertionError(f"dia_spmm_halo disagrees with its plain "
-                             f"version: {row}")
+                             f"version or across its offset paths: {row}")
     return row
 
 
@@ -1237,11 +1307,13 @@ def ext_csr(torch, data_loc, offsets, lo, ext):
 
 
 def timing_halo_case(torch, spmm, label, m_loc, offsets, s, dtype, gen,
-                     reps):
-    """The halo kernel's time per shard launch beside its bound: (d m_loc
-    + (span_lo + m_loc + span_hi) s + m_loc s) itemsize bytes over 3.35
-    TB/s against 2 d m_loc s flops; its plain version; torch.sparse.mm on
-    a CSR copy of the shard's (m_loc x ext) operator."""
+                     reps, floor):
+    """The halo kernel's time per shard launch (its offsets by value, as
+    the mesh apply passes them) beside its bound: (d m_loc + (span_lo +
+    m_loc + span_hi) s + m_loc s) itemsize bytes over 3.35 TB/s against
+    2 d m_loc s flops; the launch floor; its plain version;
+    torch.sparse.mm on a CSR copy of the shard's (m_loc x ext)
+    operator."""
     name = str(dtype).replace("torch.", "")
     itemsize = torch.empty((), dtype=dtype).element_size()
     d = len(offsets)
@@ -1257,11 +1329,14 @@ def timing_halo_case(torch, spmm, label, m_loc, offsets, s, dtype, gen,
             for _ in range(n_copies(nbytes + m_loc * s * itemsize))]
     lib_sets = [(ext_csr(torch, st[0], offsets, lo, ext),
                  torch.cat([st[3], st[2], st[4]])) for st in sets]
-    row = time_kernel(torch, label, spmm.dia_spmm_halo,
+    def dia_spmm_halo(*args):
+        return spmm.dia_spmm_halo(*args, offsets=offsets)
+
+    row = time_kernel(torch, label, dia_spmm_halo,
                       spmm.dia_spmm_halo_reference, sets, nbytes, flops,
                       name, reps, lib_sets=lib_sets)
     row.update({"m_loc": m_loc, "d": d, "span_lo": lo, "span_hi": hi,
-                "s": s})
+                "s": s, "launch_floor_ms": floor})
     return row
 
 
@@ -1468,17 +1543,19 @@ def run_mesh_phases(torch, rt, spmm, em, smi, gen, only, solve_f64):
     halo_t = None
     if want("timing_halo"):
         t0 = time.perf_counter()
+        floor = launch_floor_ms(torch)
         rows = [
             timing_halo_case(torch, spmm, "mesh solve shard f64 s=8", 16384,
-                             solve_offsets, 8, f64, gen, 400),
+                             solve_offsets, 8, f64, gen, 400, floor),
             timing_halo_case(torch, spmm, "bench mesh shard f32 s=16",
                              589824, (-1536, -1, 0, 1, 1536), 16, f32, gen,
-                             50),
+                             50, floor),
         ]
         halo_t = rows[0]
         overhead = halo_overhead(torch, rt, spmm, em, gen, 50)
         emit({"phase": "timing_halo", "cases": rows, "overhead": overhead,
-              "smi": smi, "wall_s": time.perf_counter() - t0})
+              "launch_floor_ms": floor, "smi": smi,
+              "wall_s": time.perf_counter() - t0})
         torch.cuda.empty_cache()
 
     # ---- 15. the main path: the n = 65,536 f64 solve on the mesh

@@ -90,7 +90,7 @@ def _halo_apply(shards: List[DiaMatrix], offsets, x: torch.Tensor,
         hl = _halo(x, r0 - span_lo, r0, dev)
         hh = _halo(x, r1, r1 + span_hi, dev)
         dia_spmm_halo(dia_loc.data, dia_loc.offsets_t, x[r0:r1], hl, hh,
-                      out=y[r0:r1])
+                      out=y[r0:r1], offsets=dia_loc.offsets)
     return y
 
 

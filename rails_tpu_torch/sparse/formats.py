@@ -43,6 +43,7 @@ import torch
 from rails_tpu_torch.operators import LinearOperator
 from rails_tpu_torch.sparse.ell_spmm import ell_spmm, ell_spmm_reference
 from rails_tpu_torch.sparse.spmm import dia_spmm, dia_spmm_reference
+from rails_tpu_torch.sparse.tiling import TILE_ROWS, tile_windows
 from rails_tpu_torch.sparse.wide_spmm import WideWindow, build_wide_window
 from rails_tpu_torch.utils.compensated import two_prod, two_sum
 from rails_tpu_torch.utils.device import as_tensor, resolve_device
@@ -133,7 +134,14 @@ class EllMatrix:
     Padding slots have values == 0 and *row-local* indices (the row's own
     first column; an empty row's clamped row id), as the JAX package
     builds them.  Every index lies in [0, n): checked here, once, so the
-    kernel gathers without a bounds test."""
+    kernel gathers without a bounds test.  With that check the windows
+    of its row tiles are taken: ``tiles`` (T, 2) int32 on the payload's
+    device, for each ``TILE_ROWS`` rows the smallest and largest index
+    (the rows of x the tile reads; the kernel stages them in shared
+    memory), and ``window_rows`` their widths on the host (the kernel's
+    plan, ``sparse/ell_spmm.py::ell_plan``)."""
+
+    TILE_ROWS = TILE_ROWS
 
     indices: torch.Tensor            # (m, L) int32
     values: torch.Tensor             # (m, L)
@@ -142,6 +150,10 @@ class EllMatrix:
     # built on request (sparse_from_scipy(..., wide_s=True)); bfloat16
     # planes whatever the values' dtype
     wide: Optional[WideWindow] = None
+    tiles: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                            compare=False)
+    window_rows: np.ndarray = dataclasses.field(init=False, repr=False,
+                                                compare=False)
 
     def __post_init__(self):
         self.shape = (int(self.shape[0]), int(self.shape[1]))
@@ -156,8 +168,11 @@ class EllMatrix:
                 f"{tuple(self.values.shape)} do not match shape {self.shape}")
         if self.values.device != self.indices.device:
             raise ValueError("ELL indices and values on different devices")
+        self.tiles = tile_windows(self.indices, self.TILE_ROWS)
+        win = self.tiles.cpu().numpy()     # the one host read
+        self.window_rows = (win[:, 1].astype(np.int64) - win[:, 0] + 1)
         if n > 0 and self.indices.numel():
-            lo, hi = (int(v) for v in torch.aminmax(self.indices))
+            lo, hi = int(win[:, 0].min()), int(win[:, 1].max())
             if lo < 0 or hi >= n:
                 raise ValueError(f"ELL indices span [{lo}, {hi}], outside "
                                  f"[0, {n})")

@@ -22,7 +22,10 @@ rows the stencil needs below and above the shard given as halos:
 On a CUDA tensor it launches ``csrc/dia_spmm_halo.cu`` (the counterpart
 of the JAX package's ``sparse/spmm.py::_dia_spmm_t_halo_impl``); on a CPU
 tensor it runs ``dia_spmm_halo_reference``.  ``dia_spmm_halo.launches``
-counts its launches.
+counts its launches.  A caller that holds the offsets as a host tuple
+(``DiaMatrix.offsets``) passes it as ``offsets=``: up to 16 diagonals then
+go to the kernel by value (``pack_offsets``), with no device read ahead
+of its loads; without it, or past 16, the kernel reads ``offsets_t``.
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ import ctypes
 
 import torch
 
+from rails_tpu_torch.sparse.tiling import column_lanes, vector_width
+
 __all__ = ["dia_spmm", "dia_spmm_reference", "dia_spmm_halo",
-           "dia_spmm_halo_reference"]
+           "dia_spmm_halo_reference", "pack_offsets", "OFFSETS_CAP"]
 
 
 def dia_spmm_reference(dia, x: torch.Tensor) -> torch.Tensor:
@@ -139,6 +144,30 @@ def dia_spmm_halo_reference(data_loc: torch.Tensor, offsets_t: torch.Tensor,
     return y
 
 
+OFFSETS_CAP = 16   # diagonals the halo kernel takes by value
+
+
+class _OffsetPack(ctypes.Structure):
+    """csrc/dia_spmm_halo.cu's RailsHaloOffsets: the diagonal count, min(0,
+    offsets), max(0, offsets) and up to OFFSETS_CAP offsets."""
+
+    _fields_ = [("d", ctypes.c_int), ("omin", ctypes.c_int),
+                ("omax", ctypes.c_int),
+                ("off", ctypes.c_int * OFFSETS_CAP)]
+
+
+def pack_offsets(offsets):
+    """The halo kernel's by-value offsets for a host sequence, or None
+    when there are more than OFFSETS_CAP (the kernel then reads the
+    device array)."""
+    offs = [int(o) for o in offsets]
+    if len(offs) > OFFSETS_CAP:
+        return None
+    pk = _OffsetPack(len(offs), min([0] + offs), max([0] + offs))
+    pk.off[:len(offs)] = offs
+    return pk
+
+
 _HALO_SYMBOLS = {torch.float32: "rails_dia_spmm_halo_f32",
                  torch.float64: "rails_dia_spmm_halo_f64"}
 _HALO_FNS = {}
@@ -153,24 +182,29 @@ def _halo_kernel_fn(dtype):
 
         fn = getattr(_build.load("dia_spmm_halo"), _HALO_SYMBOLS[dtype])
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(_OffsetPack),
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
         _HALO_FNS[dtype] = fn
     return fn
 
 
 def dia_spmm_halo(data_loc: torch.Tensor, offsets_t: torch.Tensor,
-                  x_loc: torch.Tensor, hl, hh, out=None) -> torch.Tensor:
+                  x_loc: torch.Tensor, hl, hh, out=None,
+                  offsets=None) -> torch.Tensor:
     """y = A_loc @ [hl; x_loc; hh] for one row shard: ``data_loc`` (d,
     m_loc), ``offsets_t`` (d,) int32, ``x_loc`` (m_loc, s), ``hl``
     (span_lo, s) and ``hh`` (span_hi, s), ``None`` where a span is 0.
     Offsets are expected within [-span_lo, span_hi]; terms outside the
     extended rows are dropped.  ``out``: optional (m_loc, s) tensor to
-    write y into (a shard's rows of a global y).  CPU tensors: the plain
-    version.  CUDA tensors: the kernel, after checking device, dtype,
-    shape and contiguity."""
+    write y into (a shard's rows of a global y).  ``offsets``: the same
+    offsets as a host sequence, when the caller holds one (it is trusted
+    to equal ``offsets_t``).  CPU tensors: the plain version.  CUDA
+    tensors: the kernel, after checking device, dtype, shape and
+    contiguity."""
     if x_loc.device.type == "cpu":
         return dia_spmm_halo_reference(data_loc, offsets_t, x_loc, hl, hh,
                                        out)
@@ -178,7 +212,8 @@ def dia_spmm_halo(data_loc: torch.Tensor, offsets_t: torch.Tensor,
         raise ValueError(f"dia_spmm_halo: unsupported device {x_loc.device}")
     if x_loc.device.index != torch.cuda.current_device():
         with torch.cuda.device(x_loc.device):
-            return dia_spmm_halo(data_loc, offsets_t, x_loc, hl, hh, out)
+            return dia_spmm_halo(data_loc, offsets_t, x_loc, hl, hh, out,
+                                 offsets)
     if x_loc.dtype not in _HALO_SYMBOLS:
         raise TypeError(f"dia_spmm_halo kernel takes float32 or float64, "
                         f"got {x_loc.dtype}")
@@ -216,13 +251,22 @@ def dia_spmm_halo(data_loc: torch.Tensor, offsets_t: torch.Tensor,
     if offsets_t.device != x_loc.device or not offsets_t.is_contiguous():
         raise ValueError("dia_spmm_halo: offsets_t must be contiguous on "
                          "x_loc's device")
+    if offsets is not None and len(offsets) != d:
+        raise ValueError(f"dia_spmm_halo: {len(offsets)} host offsets for "
+                         f"{d} diagonals")
     if m == 0 or s == 0:
         return out
     lo, hi = _span(hl), _span(hh)
+    pk = None if offsets is None else pack_offsets(offsets)
+    vec = vector_width(s, x_loc.element_size(),
+                       *(t.data_ptr() for t in (x_loc, out, hl, hh)
+                         if t is not None and t.numel()))
+    lanes, _ = column_lanes(s, vec)
     fn = _halo_kernel_fn(x_loc.dtype)
-    rc = fn(data_loc.data_ptr(), offsets_t.data_ptr(), d, x_loc.data_ptr(),
+    rc = fn(data_loc.data_ptr(), None if pk is None else ctypes.byref(pk),
+            offsets_t.data_ptr(), d, x_loc.data_ptr(),
             hl.data_ptr() if lo else None, hh.data_ptr() if hi else None,
-            out.data_ptr(), m, lo, hi, s,
+            out.data_ptr(), m, lo, hi, s, vec, lanes,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dia_spmm_halo kernel launch failed: "

@@ -323,3 +323,236 @@ class TestKernelOnCard:
         x = torch.ones(64, 4, device=cuda_device)[:, ::2]
         with pytest.raises(ValueError, match="contiguous"):
             ell_spmm(op.fwd, x)
+
+
+class TestPlan:
+    """The ELL kernel's host-side plan (``ell_plan``, the row-tile windows
+    of ``EllMatrix``, ``sparse/tiling.py``): pure integer arithmetic that
+    decides the launch, checked here without a card."""
+
+    def test_tile_windows_match_numpy(self, rng):
+        from rails_tpu_torch.sparse.tiling import tile_windows
+
+        for m, ell_l in ((1000, 8), (128, 3), (129, 1), (5, 4)):
+            idx = rng.integers(0, 5000, (m, ell_l)).astype(np.int32)
+            win = tile_windows(torch.from_numpy(idx), 128).numpy()
+            want = [(idx[r:r + 128].min(), idx[r:r + 128].max())
+                    for r in range(0, m, 128)]
+            assert win.dtype == np.int32
+            assert win.tolist() == [list(map(int, w)) for w in want]
+
+    def test_payload_carries_windows(self, rng):
+        a = banded_random(rng, 1100, 5, 33, n=800, empty_rows=100)
+        e = sparse_from_scipy(a, fmt="ell", dtype=torch.float64,
+                              device="cpu").fwd
+        idx = e.indices.numpy()
+        assert e.tiles.shape == (9, 2) and e.TILE_ROWS == 128
+        for t, (lo, hi) in enumerate(e.tiles.tolist()):
+            blk = idx[128 * t:128 * (t + 1)]
+            assert (lo, hi) == (blk.min(), blk.max())
+            assert e.window_rows[t] == hi - lo + 1
+        empty = EllMatrix(torch.zeros(3, 0, dtype=torch.int32),
+                          torch.zeros(3, 0), (3, 4))
+        assert empty.tiles.tolist() == [[0, -1]]
+        assert empty.window_rows.tolist() == [0]
+
+    def test_vector_width_and_lanes(self):
+        from rails_tpu_torch.sparse.tiling import column_lanes, vector_width
+
+        assert vector_width(16, 4, 0, 256) == 4
+        assert vector_width(16, 4, 8) == 2         # 8-byte aligned only
+        assert vector_width(6, 4, 0) == 2          # 24-byte rows
+        assert vector_width(3, 4, 0) == 1
+        assert vector_width(8, 8, 0, 16) == 2
+        assert vector_width(8, 8, 8) == 1
+        assert vector_width(7, 8, 0) == 1
+        assert column_lanes(200, 4) == (50, 1)
+        assert column_lanes(256, 4) == (64, 1)
+        assert column_lanes(300, 1) == (60, 5)     # balanced tiles
+        assert column_lanes(256, 4, 64) == (16, 4)
+        assert column_lanes(200, 4, 42) == (10, 5)
+        assert column_lanes(1, 1) == (1, 1)
+
+    @pytest.mark.parametrize("s,itemsize,vec", [
+        (1, 8, 1), (3, 4, 1), (8, 8, 2), (16, 4, 4), (67, 4, 1),
+        (200, 4, 4), (256, 4, 4), (192, 8, 2)])
+    def test_banded_plan_stages_every_tile(self, rng, s, itemsize, vec):
+        from rails_tpu_torch.sparse.ell_spmm import (
+            SLOT_BUDGET, WINDOW_BUDGET, ell_plan)
+
+        e = sparse_from_scipy(bench_band(rng, 4096), fmt="ell",
+                              device="cpu").fwd
+        p = ell_plan(e.window_rows, 8, s, itemsize, vec)
+        assert p.staged == p.tiles == 32 and p.staged_share == 1.0
+        assert p.col_tile == p.lanes * vec and p.col_tile % vec == 0
+        assert p.col_tiles * p.col_tile >= s > (p.col_tiles - 1) * \
+            p.col_tile
+        assert 1 <= p.lanes <= 64
+        assert e.window_rows.max() * p.col_tile * itemsize <= \
+            p.window_bytes <= WINDOW_BUDGET
+        # the slots of a 128-row tile: 8 indices and 8 values a row
+        assert p.slot_bytes == 128 * 8 * (4 + itemsize) <= SLOT_BUDGET
+
+    def test_scattered_plan_stages_nothing(self, rng):
+        from rails_tpu_torch.sparse.ell_spmm import ell_plan
+
+        m = 4096
+        idx = rng.integers(0, m, (m, 4))
+        a = sp.coo_matrix((np.ones(4 * m), (np.repeat(np.arange(m), 4),
+                                            idx.ravel())), (m, m)).tocsr()
+        e = sparse_from_scipy(a, fmt="ell", device="cpu").fwd
+        p = ell_plan(e.window_rows, 4, 16, 4, 4)
+        assert (p.staged, p.window_bytes, p.staged_share) == (0, 0, 0.0)
+        assert (p.lanes, p.col_tiles) == (4, 1)
+
+    def test_mixed_plan_counts_fitting_tiles(self):
+        """A tile is staged exactly when its window fits the launch's
+        shared bytes, the kernel's own test."""
+        from rails_tpu_torch.sparse.ell_spmm import ell_plan
+
+        w = np.array([200, 250, 256, 100000, 300, 5000])
+        p = ell_plan(w, 5, 16, 4, 4)
+        fits = w * p.col_tile * 4 <= p.window_bytes
+        assert p.staged == int(fits.sum()) == 4
+        assert p.window_bytes == 300 * p.col_tile * 4
+        assert ell_plan(np.zeros(0, np.int64), 5, 8, 8, 2).tiles == 0
+
+    def test_slot_bytes(self):
+        """The kernel's layout: 16-byte aligned index and value regions
+        for a tile's rows; none past SLOT_BUDGET or with no slots."""
+        from rails_tpu_torch.sparse.ell_spmm import ell_plan
+
+        w = np.full(4, 300)
+        assert ell_plan(w, 5, 8, 8, 2).slot_bytes == 128 * 5 * 4 + 128 * 5 * 8
+        assert ell_plan(w, 3, 8, 4, 4).slot_bytes == 128 * 3 * 8
+        assert ell_plan(w, 16, 8, 8, 2).slot_bytes == 128 * 16 * 12
+        assert ell_plan(w, 17, 8, 8, 2).slot_bytes == 0
+        assert ell_plan(w, 24, 8, 4, 2).slot_bytes == 128 * 24 * 8
+        assert ell_plan(w, 0, 8, 8, 2).slot_bytes == 0
+
+    def test_plan_cached_per_shape(self, rng):
+        from rails_tpu_torch.sparse.ell_spmm import _plan_for
+
+        e = sparse_from_scipy(bench_band(rng, 512), fmt="ell",
+                              device="cpu").fwd
+        x = torch.zeros(512, 16)
+        p = _plan_for(e, x, torch.zeros(512, 16))
+        assert _plan_for(e, x, torch.zeros(512, 16)) is p
+        assert _plan_for(e, torch.zeros(512, 3), torch.zeros(512, 3)) \
+            is not p
+
+
+def _scattered(rng, m, n, ell_l):
+    """Every slot a random column of all n: no tile's window fits."""
+    idx = rng.integers(0, n, (m, ell_l))
+    return sp.coo_matrix((rng.uniform(-1, 1, m * ell_l),
+                          (np.repeat(np.arange(m), ell_l), idx.ravel())),
+                         (m, n)).tocsr()
+
+
+@pytest.mark.cuda
+class TestRedesignOnCard:
+    """The 2-D tiled kernel's branches and plans against the plain
+    version on the card (f32 1e-5, f64 1e-12 of max|y|)."""
+
+    @staticmethod
+    def _check(op, x, dtype):
+        before = ell_spmm.launches
+        y = ell_spmm(op.fwd, x)
+        torch.cuda.synchronize()
+        assert ell_spmm.launches == before + 1
+        ref = ell_spmm_reference(op.fwd, x)
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        assert tuple(y.shape) == tuple(ref.shape)
+        assert (y - ref).abs().max().item() <= \
+            tol * max(ref.abs().max().item(), 1e-300)
+        return y
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("s", [1, 3, 8, 67, 200, 256])
+    @pytest.mark.parametrize("kind", ["window fits", "scattered"])
+    def test_branches_and_widths(self, rng, cuda_device, dtype, s, kind):
+        from rails_tpu_torch.sparse.ell_spmm import _plan_for
+
+        # scattered over 40,000 columns: even at s = 1 a tile's window
+        # (about all of x) is past the 64 KB of shared memory
+        m, n = 3000, (3000 if kind == "window fits" else 40000)
+        a = bench_band(rng, m) if kind == "window fits" \
+            else _scattered(rng, m, n, 5)
+        op = sparse_from_scipy(a, fmt="ell", dtype=dtype,
+                               device=cuda_device)
+        x = torch.from_numpy(rng.uniform(-1, 1, (n, s))).to(cuda_device,
+                                                           dtype)
+        self._check(op, x, dtype)
+        share = _plan_for(op.fwd, x, torch.empty(
+            m, s, dtype=dtype, device=cuda_device)).staged_share
+        assert share == (1.0 if kind == "window fits" else 0.0)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    def test_branches_give_the_same_bits(self, rng, cuda_device, dtype):
+        """Staged and global gathers sum in the same order: forcing every
+        tile onto the global branch, slots and x alike, changes no
+        bit."""
+        import dataclasses
+
+        from rails_tpu_torch.sparse.ell_spmm import _plan_for
+
+        a = bench_band(rng, 4096)
+        op = sparse_from_scipy(a, fmt="ell", dtype=dtype,
+                               device=cuda_device)
+        x = torch.from_numpy(rng.uniform(-1, 1, (4096, 16))).to(
+            cuda_device, dtype)
+        y = self._check(op, x, dtype)
+        plan = _plan_for(op.fwd, x, y)
+        assert plan.window_bytes > 0 and plan.slot_bytes > 0
+        key = next(k for k, v in op.fwd._plans.items() if v is plan)
+        op.fwd._plans[key] = dataclasses.replace(
+            plan, window_bytes=0, slot_bytes=0, staged=0)
+        try:
+            assert torch.equal(ell_spmm(op.fwd, x), y)
+        finally:
+            op.fwd._plans[key] = plan
+
+    def test_mixed_tiles(self, rng, cuda_device):
+        """A band with a few scattered rows: some tiles staged, some not."""
+        from rails_tpu_torch.sparse.ell_spmm import _plan_for
+
+        a = bench_band(rng, 4096).tolil()
+        for i in rng.integers(0, 4096, 6):
+            a[i, int(rng.integers(0, 4096))] = 0.5
+        op = sparse_from_scipy(a.tocsr(), fmt="ell", dtype=torch.float64,
+                               device=cuda_device)
+        x = torch.from_numpy(rng.uniform(-1, 1, (4096, 8))).to(cuda_device)
+        self._check(op, x, torch.float64)
+        assert 0.0 < _plan_for(op.fwd, x, torch.empty_like(
+            x)).staged_share < 1.0
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("s,skip", [(8, 1), (3, 1), (16, 3)])
+    def test_misaligned_row_slice(self, rng, cuda_device, dtype, s, skip):
+        """x a row slice whose start is not 16-byte aligned (as a halo
+        shard's x[r0:r1] at odd s): the plan narrows the vectors."""
+        m = 2048
+        op = sparse_from_scipy(bench_band(rng, m), fmt="ell", dtype=dtype,
+                               device=cuda_device)
+        buf = torch.from_numpy(rng.uniform(-1, 1, (m * s + skip,))).to(
+            cuda_device, dtype)
+        x = buf[skip:].view(m, s)
+        assert x.data_ptr() % 16 != 0
+        self._check(op, x, dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    def test_rectangular_empty_rows_and_no_columns(self, rng, cuda_device,
+                                                   dtype):
+        for m, n, s in ((1100, 800, 3), (300, 900, 8), (777, 5000, 67)):
+            a = banded_random(rng, m, 5, 33, n=n, empty_rows=m // 7)
+            op = sparse_from_scipy(a, fmt="ell", dtype=dtype,
+                                   device=cuda_device)
+            x = torch.from_numpy(rng.uniform(-1, 1, (n, s))).to(
+                cuda_device, dtype)
+            self._check(op, x, dtype)
+        op = sparse_from_scipy(sp.csr_matrix((5, 0)), fmt="ell",
+                               dtype=dtype, device=cuda_device)
+        y = ell_spmm(op.fwd, torch.zeros(0, 3, dtype=dtype,
+                                         device=cuda_device))
+        assert tuple(y.shape) == (5, 3) and not y.any()

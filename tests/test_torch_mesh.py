@@ -576,3 +576,115 @@ class TestKernelOnCard:
         with pytest.raises(ValueError):
             spmm.dia_spmm_halo(data, offs, x.cpu().cuda(), torch.ones(
                 3, 4), None)
+
+
+def test_pack_offsets():
+    """The halo kernel's by-value offsets: count, extremes with 0 and the
+    offsets in order; None past the cap (the device-array path)."""
+    pk = spmm.pack_offsets((-256, -1, 0, 1, 256))
+    assert (pk.d, pk.omin, pk.omax) == (5, -256, 256)
+    assert list(pk.off)[:5] == [-256, -1, 0, 1, 256]
+    pk = spmm.pack_offsets((2, 7))
+    assert (pk.d, pk.omin, pk.omax) == (2, 0, 7)
+    assert spmm.pack_offsets(range(spmm.OFFSETS_CAP)).d == spmm.OFFSETS_CAP
+    assert spmm.pack_offsets(range(spmm.OFFSETS_CAP + 1)) is None
+
+
+def test_halo_apply_passes_host_offsets(rng, monkeypatch):
+    """The mesh apply hands the kernel's wrapper the payload's host tuple,
+    so the kernel gets its offsets by value (no device read per launch)."""
+    from rails_tpu_torch.parallel import halo_spmm
+
+    seen = []
+    real = halo_spmm.dia_spmm_halo
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("offsets"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(halo_spmm, "dia_spmm_halo", spy)
+    a = nonsym_stencil(16)
+    op = rt.sparse_from_scipy(a, fmt="dia", dtype=torch.float64,
+                              device="cpu")
+    h = shard_operator(op, make_mesh(devices=["cpu"] * 4))
+    h.matmat(torch.ones(256, 2, dtype=torch.float64))
+    assert seen == [op.fwd.offsets] * 4
+
+
+@pytest.mark.cuda
+class TestHaloRedesignOnCard:
+    """Kernel #3's by-value and device-array offsets, vector widths and
+    halo shapes against its plain version (f32 1e-5, f64 1e-12 of
+    max|y|), and against each other bit for bit."""
+
+    @staticmethod
+    def _args(rng, dev, dtype, m, offsets, lo, hi, s):
+        def arr(*shape):
+            return torch.from_numpy(rng.uniform(-1, 1, shape)).to(dev, dtype)
+
+        return (arr(len(offsets), m),
+                torch.tensor(offsets, dtype=torch.int32, device=dev),
+                arr(m, s), arr(lo, s) if lo else None,
+                arr(hi, s) if hi else None)
+
+    @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                           (torch.float64, 1e-12)])
+    @pytest.mark.parametrize("m,offsets,lo,hi,s", [
+        (16384, (-256, -1, 0, 1, 256), 256, 256, 8),
+        (4099, tuple(range(-10, 10)), 10, 9, 6),     # 20 > the cap
+        (1000, tuple(range(-8, 8)), 8, 7, 16),       # exactly the cap
+        (777, (0, 1, 5), 0, 5, 1),                   # one-sided
+        (512, (-9, 0, 3), 4, 0, 3),                  # terms beyond halos
+        (300, (0,), 0, 0, 256),                      # no halos at all
+    ])
+    def test_offset_paths_agree(self, rng, cuda_device, dtype, tol, m,
+                                offsets, lo, hi, s):
+        args = self._args(rng, cuda_device, dtype, m, offsets, lo, hi, s)
+        before = spmm.dia_spmm_halo.launches
+        y_val = spmm.dia_spmm_halo(*args, offsets=offsets)
+        y_dev = spmm.dia_spmm_halo(*args)
+        torch.cuda.synchronize()
+        assert spmm.dia_spmm_halo.launches == before + 2
+        ref = spmm.dia_spmm_halo_reference(*args)
+        assert (y_val - ref).abs().max().item() <= \
+            tol * ref.abs().max().item()
+        assert torch.equal(y_val, y_dev)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("s", [3, 8, 16])
+    def test_misaligned_out_and_x(self, rng, cuda_device, dtype, s):
+        """``out`` and ``x_loc`` one element into a buffer, off 16-byte
+        alignment (as a shard's rows of a global array at odd s): equal
+        to the aligned launch, bit for bit."""
+        m, offsets = 1000, (-40, -1, 0, 2, 33)
+        data, offs, x, hl, hh = self._args(rng, cuda_device, dtype, m,
+                                           offsets, 40, 33, s)
+        ref = spmm.dia_spmm_halo(data, offs, x, hl, hh, offsets=offsets)
+        big = torch.zeros(m * s + 2, dtype=dtype, device=cuda_device)
+        xb = torch.zeros(m * s + 1, dtype=dtype, device=cuda_device)
+        xs = xb[1:].view(m, s)
+        xs.copy_(x)
+        out = big[1:m * s + 1].view(m, s)
+        assert out.data_ptr() % 16 and xs.data_ptr() % 16
+        y = spmm.dia_spmm_halo(data, offs, xs, hl, hh, out=out,
+                               offsets=offsets)
+        torch.cuda.synchronize()
+        assert y.data_ptr() == out.data_ptr()
+        assert torch.equal(out, ref)
+        assert big[0].item() == 0 and big[-1].item() == 0
+
+    def test_solve_shard_mesh_equals_kernel_one(self, rng, cuda_device):
+        """The mesh solve's geometry (n = 65,536, offsets 0, +-1, +-256,
+        s = 8, f64) on 4 shards: bit-equal to kernel #1's apply."""
+        n = 65536
+        a = sp.diags([rng.uniform(-1, 1, n - k) for k in (256, 1)]
+                     + [rng.uniform(-1, 1, n)]
+                     + [rng.uniform(-1, 1, n - k) for k in (1, 256)],
+                     [-256, -1, 0, 1, 256]).tocsr()
+        op = rt.sparse_from_scipy(a, fmt="dia", dtype=torch.float64,
+                                  device=cuda_device)
+        h = shard_operator(op, make_mesh(devices=[cuda_device] * 4))
+        assert isinstance(h, HaloDiaOperator)
+        x = torch.from_numpy(rng.uniform(-1, 1, (n, 8))).to(cuda_device)
+        assert torch.equal(h.matmat(x), op.matmat(x))
+        assert torch.equal(h.rmatmat(x), op.rmatmat(x))

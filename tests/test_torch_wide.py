@@ -367,13 +367,19 @@ class TestKernelOnCard:
 
 
 def test_ablation_cuts_match_the_kernel_source():
-    """``kernel_ablation`` cuts parts of the kernel by text substitution;
-    each cut must still find its text in ``csrc/wide_spmm.cu``."""
+    """``kernel_ablation`` cuts parts of a kernel by text substitution;
+    each cut must still find its text, once, in its kernel's source
+    (``csrc/wide_spmm.cu``, ``ell_spmm.cu``, ``dia_spmm_halo.cu``)."""
     from rails_tpu_torch import _build, kernel_ablation
 
-    src = _build.sources()["wide_spmm"].read_text()
-    assert set(kernel_ablation.CUTS) == {
+    cuts = kernel_ablation.CUTS
+    assert set(cuts["wide_spmm"]) == {
         "kernel", "no_mma", "no_mma_no_x", "no_mma_no_planes"}
-    for subs in kernel_ablation.CUTS.values():
-        for old, _ in subs:
-            assert src.count(old) == 1, old
+    assert set(cuts["ell_spmm"]) == {
+        "kernel", "no_x_gathers", "no_slot_loads", "no_staging"}
+    assert set(cuts["dia_spmm_halo"]) == {"kernel", "no_data", "no_x"}
+    for kernel, copies in cuts.items():
+        src = _build.sources()[kernel].read_text()
+        for subs in copies.values():
+            for old, _ in subs:
+                assert src.count(old) == 1, (kernel, old)
