@@ -14,8 +14,14 @@ exits nonzero and never prints the last line):
               at float32 and float64, max|dy| <= 1e-5 max|y| at float32,
               1e-12 max|y| at float64.  DIA SpMM: the solve stencil
               (m=65536, offsets 0, +-1, +-256) at s = 1, 6, 8, 16, an
-              asymmetric stencil at an odd size, a rectangular matrix and
-              the JAX bench's spmm geometry (side 1536, s=16).  ELL SpMM
+              asymmetric stencil at an odd size, a rectangular matrix,
+              the JAX bench's spmm geometry (side 1536, s=16), the solve
+              stencil at m = 4097 (data rows off 16 bytes) and a 3-D
+              7-point stencil (side 40: +-1, +-40, +-1600), each through
+              the branch its plan picks and, where both can run, the
+              other one too, the two bit-equal; each row gives the plan
+              (branch and why, R, segments, bytes per stage, stages,
+              grid).  ELL SpMM
               (compare_ell): the JAX bench's ELL geometry (m=2^21, L=8,
               band +-64, s=16), the side-256 Laplacian DAE's A22, A12 and
               A21 at s = 1, 8, 16, and a rectangular matrix with empty
@@ -31,7 +37,10 @@ exits nonzero and never prints the last line):
               bound: the larger of bytes / 3.35 TB/s and flops / peak,
               and the launch floor (torch.cuda._sleep(1) timed the same
               way).  DIA: the solve shapes, the bench geometry and
-              refined_scale's (n = 65,536, s = 8, f32).  ELL: A22 (f64,
+              refined_scale's (n = 65,536, s = 8, f32), each with its
+              plan, and for n = 65,536 (f64 and f32) also ``l2_ms``, the
+              time with the inputs resident in L2 (one set, as in the
+              solver).  ELL: A22 (f64,
               s = 8), the bench geometry (s = 16), the continuation
               shape (f32, s = 200) and an interior shard of mesh_ell
               (m_loc 4,096 over 4,352 columns, f64, s = 8), with their
@@ -248,9 +257,19 @@ def csr_of(torch, payload):
 
 
 def compare_case(torch, spmm, m, n, offsets, s, dtype, gen):
+    """Kernel #1 against its plain version through the branch its plan
+    picks and, where the case allows both branches, through the other
+    one forced by the plan too; the two must agree bit for bit."""
     dia = random_dia(torch, m, n, offsets, dtype, gen)
     x = random_x(torch, n, s, dtype, gen)
     y = spmm.dia_spmm(dia, x)
+    plan = spmm.launch_plan(dia, x)
+    y_other = None
+    if plan.stageable:
+        y_other = spmm.dia_spmm(dia, x, plan=spmm.dia_plan(
+            offsets, m, n, s, x.element_size(), plan.vec,
+            branch="direct" if plan.staged else "staged",
+            sms=spmm._sm_count(x.device)))
     torch.cuda.synchronize()
     ref = spmm.dia_spmm_reference(dia, x)
     err = (y - ref).abs().max().item()
@@ -258,10 +277,16 @@ def compare_case(torch, spmm, m, n, offsets, s, dtype, gen):
     name = str(dtype).replace("torch.", "")
     ok = err <= TOL[name] * scale
     row = {"m": m, "n": n, "offsets": list(offsets), "s": s, "dtype": name,
-           "max_abs_err": err, "max_abs_y": scale, "ok": ok}
+           "max_abs_err": err, "max_abs_y": scale, "ok": ok,
+           "plan": plan.summary()}
+    if y_other is not None:
+        row["other_branch_max_abs_err"] = (y_other - ref).abs().max().item()
+        row["branches_equal"] = bool(torch.equal(y, y_other))
+        ok = ok and row["branches_equal"] \
+            and row["other_branch_max_abs_err"] <= TOL[name] * scale
     if not ok:
-        raise AssertionError(f"dia_spmm disagrees with its plain version: "
-                             f"{row}")
+        raise AssertionError(f"dia_spmm disagrees with its plain version "
+                             f"or across its branches: {row}")
     return row
 
 
@@ -298,7 +323,12 @@ def time_kernel(torch, label, kernel, plain, sets, nbytes, flops, name,
             "flops": flops, "bound_share": b_ms / k_ms}
 
 
-def timing_case(torch, spmm, label, m, offsets, s, dtype, gen, reps):
+def timing_case(torch, spmm, label, m, offsets, s, dtype, gen, reps,
+                l2=False):
+    """Kernel #1's times (``time_kernel``) and its plan; with ``l2`` also
+    ``l2_ms``: the time with one input set, no rotation, so the payload
+    and x stay in the 50 MB L2 as they do in the solver; where both
+    branches can run, the other one's time too (forced by the plan)."""
     name = str(dtype).replace("torch.", "")
     itemsize = torch.empty((), dtype=dtype).element_size()
     probe = random_dia(torch, m, m, offsets, dtype, gen)
@@ -309,7 +339,20 @@ def timing_case(torch, spmm, label, m, offsets, s, dtype, gen, reps):
             for _ in range(n_copies(nbytes + m * s * itemsize))]
     row = time_kernel(torch, label, spmm.dia_spmm, spmm.dia_spmm_reference,
                       sets, nbytes, flops, name, reps)
-    row.update({"m": m, "d": len(offsets), "s": s})
+    plan = spmm.launch_plan(*sets[0])
+    row.update({"m": m, "d": len(offsets), "s": s, "plan": plan.summary()})
+    if l2:
+        row["l2_ms"] = time_ms(torch, spmm.dia_spmm, sets[:1], reps)
+    if plan.stageable:
+        other = spmm.dia_plan(offsets, m, m, s, itemsize, plan.vec,
+                              branch="direct" if plan.staged else "staged",
+                              sms=spmm._sm_count(sets[0][1].device))
+
+        def forced(dia, x):
+            return spmm.dia_spmm(dia, x, plan=other)
+
+        row["other_branch"] = {"staged": other.staged, "rows": other.rows,
+                               "ms": time_ms(torch, forced, sets, reps)}
     return row
 
 
@@ -982,6 +1025,11 @@ def run_earlier_phases(torch, rt, spmm, em, smi, gen):
                                  (-7000, -3, 0, 5, 20000), 4, dtype, gen))
         rows.append(compare_case(torch, spmm, 1536 * 1536, 1536 * 1536,
                                  (-1536, -1, 0, 1, 1536), 16, dtype, gen))
+        rows.append(compare_case(torch, spmm, 4097, 4097,
+                                 (-256, -1, 0, 1, 256), 8, dtype, gen))
+        rows.append(compare_case(torch, spmm, 40 ** 3, 40 ** 3,
+                                 (-1600, -40, -1, 0, 1, 40, 1600), 8, dtype,
+                                 gen))
     emit({"phase": "compare", "cases": rows, "all_ok": True,
           "wall_s": time.perf_counter() - t0})
     slice_err = next(r["max_abs_err"] for r in rows
@@ -1038,13 +1086,13 @@ def run_earlier_phases(torch, rt, spmm, em, smi, gen):
     floor = launch_floor_ms(torch)
     timings = [
         timing_case(torch, spmm, "slice f64 n=65536 s=8", 65536,
-                    (-256, -1, 0, 1, 256), 8, f64, gen, 400),
+                    (-256, -1, 0, 1, 256), 8, f64, gen, 400, l2=True),
         timing_case(torch, spmm, "solve f32 n=4096 s=6", 4096,
                     (-64, -1, 0, 1, 64), 6, f32, gen, 400),
         timing_case(torch, spmm, "bench f32 side=1536 s=16", 1536 * 1536,
                     (-1536, -1, 0, 1, 1536), 16, f32, gen, 50),
         timing_case(torch, spmm, "refined_scale f32 n=65536 s=8", 65536,
-                    (-256, -1, 0, 1, 256), 8, f32, gen, 400),
+                    (-256, -1, 0, 1, 256), 8, f32, gen, 400, l2=True),
     ]
     for r in timings:
         r["launch_floor_ms"] = floor

@@ -2,7 +2,7 @@
 it with one part of its work cut out.
 
     python3 -m rails_tpu_torch.kernel_ablation [--bench] [--continuation]
-    python3 -m rails_tpu_torch.kernel_ablation --ell [--bench] --halo
+    python3 -m rails_tpu_torch.kernel_ablation --ell [--bench] --dia --halo
     python3 -m rails_tpu_torch.kernel_ablation --cli-draws
 
 Each copy is the kernel's source with text substitutions (``CUTS``),
@@ -27,6 +27,16 @@ against the plain version is printed) and say only what each part costs:
   shared memory or global), ``no_slot_loads`` reads no indices or
   values, ``no_staging`` reads the slots and gathers x from global
   memory (the first design's data path, in the 2-D tiles).
+- ``--dia``, kernel #1 (``csrc/dia_spmm.cu``) at the solve_f64,
+  refined_scale and solve_f32 shapes, a mid size (m = 2^19, f64) and the
+  JAX bench's geometry (side 1536, s = 16, f32), each copy through the
+  branch the plan picks and, where both can run, the other (the
+  ``no_staging`` reading): ``no_data`` copies and reads no diagonal
+  data, ``no_x`` no x, ``direct_chunk8`` and ``direct_chunk4`` load 8
+  or 4 terms at a time at both types; ``rows_<R>`` the staged branch at
+  other tile heights; and clock64 stamps of three blocks of the staged
+  branch at f64 (block set-up, each tile's issue, landing and
+  arithmetic).
 - ``--halo``, kernel #3 (``csrc/dia_spmm_halo.cu``) at the mesh solve's
   shard (f64, s = 8) and the bench mesh shard (f32, s = 16): ``no_data``
   reads no diagonal data, ``no_x`` no x or halo rows.
@@ -73,29 +83,39 @@ CUTS = {
                  "no_staging": [("window_bytes > 0 &&", "false &&"),
                                 ("const bool slots = slot_bytes > 0;",
                                  "const bool slots = false;")]},
+    "dia_spmm": {"kernel": [],
+                 "no_data": [("base = reinterpret_cast<const unsigned char*>"
+                              "(data);", "base = nullptr;"),
+                             ("dv[q] = st[db[k] + r];", "dv[q] = T(k + 1);"),
+                             ("dv[q] = __ldg(data + (size_t)k * m + i);",
+                              "dv[q] = T(k + 1);")],
+                 "no_x": [("base = reinterpret_cast<const unsigned char*>"
+                           "(x);", "base = nullptr;"), NO_PACK]},
     "dia_spmm_halo": {"kernel": [],
                       "no_data": [("dv[q] = __ldg(data + (size_t)k * m + i);",
                                    "dv[q] = T(k + 1);")],
                       "no_x": [NO_PACK]},
 }
 SYMBOLS = {"wide_spmm": {torch.float32: "rails_wide_spmm_f32"},
-           "ell_spmm": em._SYMBOLS, "dia_spmm_halo": spmm._HALO_SYMBOLS}
+           "ell_spmm": em._SYMBOLS, "dia_spmm": spmm._SYMBOLS,
+           "dia_spmm_halo": spmm._HALO_SYMBOLS}
 OUT = _build.BUILD_DIR.parent / "kernel_ablation"
 
 
 def _real_fn(kernel, dtype):
     return {"wide_spmm": lambda d: wm._kernel_fn(),
-            "ell_spmm": em._kernel_fn,
+            "ell_spmm": em._kernel_fn, "dia_spmm": spmm._kernel_fn,
             "dia_spmm_halo": spmm._halo_kernel_fn}[kernel](dtype)
 
 
-def build(kernel):
-    """Every copy of ``kernel``, one nvcc each, in parallel; copy name ->
-    {dtype: C entry point}."""
+def build(kernel, cuts=None):
+    """Every copy of ``kernel`` (``cuts``: name -> substitutions, default
+    ``CUTS[kernel]``), one nvcc each, in parallel; copy name -> {dtype: C
+    entry point}."""
     OUT.mkdir(parents=True, exist_ok=True)
     src = _build.sources()[kernel].read_text()
     procs = {}
-    for name, subs in CUTS[kernel].items():
+    for name, subs in (CUTS[kernel] if cuts is None else cuts).items():
         text = src
         for old, new in subs:
             if old not in text:
@@ -218,6 +238,116 @@ def ell_cases(cs, argv):
         del sets
 
 
+SOLVE = (-256, -1, 0, 1, 256)
+# kernel #1's copies beyond CUTS: the direct branch with 8-term load
+# chunks at float64 too, or 4-term ones at float32 too, and the staged
+# branch with clock64 stamps of one
+# block written over its first rows of y (block start = 0): after the
+# barrier set-up, after each of its first 4 tiles' issue (warp 0), after
+# each wait for a tile's data and after each tile's arithmetic (consumer
+# thread 0), at the end
+DIA_EXTRA = {
+    "direct_chunk8": [("kDirectChunk = sizeof(T) == 8 ? 4 : 8;",
+                       "kDirectChunk = 8;")],
+    "direct_chunk4": [("kDirectChunk = sizeof(T) == 8 ? 4 : 8;",
+                       "kDirectChunk = 4;")],
+}
+_END = "  }\n}\n\n// " + "-" * 64 + " launch"
+DIA_STAMPS = [
+    ("  __shared__ int tab[2][2 * kCap];\n  const int R = p.rows;",
+     "  __shared__ int tab[2][2 * kCap];\n  __shared__ long long dbg[16];\n"
+     "  const long long c0 = clock64();\n  const int R = p.rows;"),
+    ("  __syncthreads();\n  int q = 0;",
+     "  __syncthreads();\n  if (threadIdx.x == 32) dbg[0] = clock64() - c0;"
+     "\n  int q = 0;"),
+    ("                     &full[q], t * R, m, n, s, p.d);\n",
+     "                     &full[q], t * R, m, n, s, p.d);\n      if "
+     "(threadIdx.x == 0 && use < 4) dbg[1 + use] = clock64() - c0;\n"),
+    ("    mbar_wait(&full[q], phase);\n",
+     "    mbar_wait(&full[q], phase);\n    const int tt = (t - blockIdx.x) "
+     "/ gridDim.x;\n    if (ct == 0 && tt < 4) dbg[5 + tt] = clock64() - "
+     "c0;\n"),
+    ("    if (warp_leader) mbar_arrive(&empty[q]);\n",
+     "    if (warp_leader) mbar_arrive(&empty[q]);\n    if (ct == 0 && tt < "
+     "4) dbg[9 + tt] = clock64() - c0;\n"),
+    (_END, "  }\n  if (ct == 0) {\n    dbg[13] = clock64() - c0;\n    for "
+     "(int i = 0; i < 14; ++i) y[(size_t)blockIdx.x * R * s + i] = "
+     "(T)dbg[i];\n  }\n}\n\n// " + "-" * 64 + " launch"),
+]
+
+
+def dia_cases(cs, argv):
+    """Kernel #1 at the main path's shapes and the JAX bench's: each copy
+    (CUTS and ``direct_chunk8``) through the branch its plan picks and,
+    where both can run, the other one; the staged branch at other tile
+    heights (``rows_<R>``); a mid-size case between the two regimes; the
+    clock64 stamps of three blocks of the staged branch."""
+    fns = build("dia_spmm", {**CUTS["dia_spmm"], **DIA_EXTRA})
+    stamps = build("dia_spmm", {"stamps": DIA_STAMPS})["stamps"]
+    gen = torch.Generator("cuda").manual_seed(0)
+    sms = spmm._sm_count(torch.device("cuda"))
+    f32, f64 = torch.float32, torch.float64
+    for label, m, offsets, s, dtype, reps in (
+            ("solve_f64 f64 s=8", 65536, SOLVE, 8, f64, 400),
+            ("refined_scale f32 s=8", 65536, SOLVE, 8, f32, 400),
+            ("solve_f32 f32 s=6", 4096, (-64, -1, 0, 1, 64), 6, f32, 400),
+            ("mid f64 m=2^19 s=8", 1 << 19, SOLVE, 8, f64, 200),
+            ("bench f32 s=16", 1536 * 1536, (-1536, -1, 0, 1, 1536), 16,
+             f32, 50)):
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        nbytes = (len(offsets) * m + 2 * m * s) * itemsize
+        sets = [(cs.random_dia(torch, m, m, offsets, dtype, gen),
+                 cs.random_x(torch, m, s, dtype, gen))
+                for _ in range(cs.n_copies(nbytes))]
+        plan = spmm.launch_plan(*sets[0])
+        plans = {("staged" if plan.staged else "direct"): plan}
+        if plan.stageable:
+            other = "direct" if plan.staged else "staged"
+            plans[other] = spmm.dia_plan(offsets, m, m, s, itemsize,
+                                         plan.vec, branch=other, sms=sms)
+        cs.emit({"case": label, "bound_us": cs.bound_ms(
+            nbytes + 4 * len(offsets), 0, "float32")[0] * 1e3,
+            "plan": plan.summary()})
+        for branch, pl in plans.items():
+            def kernel(dia, x, pl=pl):
+                return spmm.dia_spmm(dia, x, plan=pl)
+
+            run_copies(cs, f"{label} {branch}", fns,
+                       _install_in(spmm._FNS, dtype), dtype, kernel,
+                       spmm.dia_spmm_reference, sets, reps)
+        if plan.stageable:
+            for rows in (64, 128, 256, 512):
+                pl = spmm.dia_plan(offsets, m, m, s, itemsize, plan.vec,
+                                   branch="staged", rows=rows, sms=sms)
+                if pl.rows == plans["staged"].rows:
+                    continue
+
+                def kernel(dia, x, pl=pl):
+                    return spmm.dia_spmm(dia, x, plan=pl)
+
+                cs.emit({"case": f"{label} staged", "copy": f"rows_{rows}",
+                         "us": cs.time_ms(torch, kernel, sets, reps) * 1e3,
+                         "plan": pl.summary()})
+        if dtype == f64 and plan.stageable:
+            pl = plans["staged"]
+            install = _install_in(spmm._FNS, dtype)
+            real = install(stamps[dtype])
+            try:
+                for r in range(4):
+                    y = spmm.dia_spmm(*sets[r % len(sets)], plan=pl)
+                torch.cuda.synchronize()
+            finally:
+                install(real)
+            flat = y.reshape(-1)
+            for b in (0, pl.grid // 2, pl.grid - 1):
+                st = flat[b * pl.rows * s: b * pl.rows * s + 14].tolist()
+                cs.emit({"case": f"{label} staged", "stamps_block": b,
+                         "cycles": {"setup": st[0], "issued": st[1:5],
+                                    "landed": st[5:9], "computed": st[9:13],
+                                    "end": st[13]}})
+        del sets
+
+
 def halo_cases(cs, argv):
     fns = build("dia_spmm_halo")
     gen = torch.Generator("cuda").manual_seed(0)
@@ -257,13 +387,15 @@ def main(argv):
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke as cs
 
-    chosen = {"--ell", "--halo", "--cli-draws"} & set(argv)
+    chosen = {"--ell", "--dia", "--halo", "--cli-draws"} & set(argv)
     if chosen - {"--cli-draws"}:
         cs.emit({"launch_floor_us": cs.launch_floor_ms(torch) * 1e3})
     if not chosen:
         wide_cases(cs, argv)
     if "--ell" in argv:
         ell_cases(cs, argv)
+    if "--dia" in argv:
+        dia_cases(cs, argv)
     if "--halo" in argv:
         halo_cases(cs, argv)
     if "--continuation" in argv:
