@@ -9,7 +9,9 @@ exits nonzero and never prints the last line):
 1. env      - the card (nvidia-smi name and power limit), torch and CUDA
               versions, the precision flags.
 2. build    - compile every csrc/*.cu kernel (one nvcc each, in
-              parallel); build seconds and the -Xptxas -v lines.
+              parallel); build seconds and the -Xptxas -v lines; then the
+              C++ host library (native/librails_host.cpp, g++) and its
+              build seconds.
 3. compare  - each kernel against its plain PyTorch version on the card
               at float32 and float64, max|dy| <= 1e-5 max|y| at float32,
               1e-12 max|y| at float64.  DIA SpMM: the solve stencil
@@ -57,7 +59,10 @@ exits nonzero and never prints the last line):
               zero) written as A.mtx/B.mtx/M.mtx, then
               ``rails_tpu_torch.cli.main([dir, "--x64", "--params", p])``:
               Schur reduction (A12/A21/A22 in ELL, A11 by dense LU), the
-              solve on (S, M22, Bs), V.mtx/T.mtx, the eigenvalues of the
+              solve on (S, M22, Bs) with the projected Schur solve on the
+              card's route (``dense_lyap.CARD_SCHUR_ROUTE``; its projected
+              matrices at k = 48, 96, 160 and the largest k are kept for
+              phase 18), V.mtx/T.mtx, the eigenvalues of the
               full-space solution operator and the trace.  It must
               converge with an f64 true residual of the reduced equation
               (host, A11 by scipy splu) <= 2 tol, write V/T and read them
@@ -129,13 +134,40 @@ exits nonzero and never prints the last line):
               side-96 DAE: "Distributed operator: DistributedSchurOperator",
               converged with true residual <= 2 tol, V/T read back equal,
               leading eigenvalue equal to eigsh's to 1e-6.
+18. schur_lapack - the projected Schur solve's routes on cli_schur's
+              projected matrices: the factor by LAPACK's zgees in a k x k
+              round trip to the host against the port's QR sweeps (and
+              their count), the back-substitution on the card against
+              LAPACK's trsyl on the host, each route's X within 1e-8 of
+              the card route's; the fastest route at the largest k beside
+              the card's rule; cli_schur's iterations (396 on the QR
+              route), wall, project_solve share, true residual and
+              eigenvalue (phase 7 run here when it was skipped).
+19. schur_native - on cli_schur's DAE, schur_reduce with
+              a11_solver="native_lu" (the C++ sparse LU, A11 solved on the
+              host in each apply) against "dense_lu": S and S' applies
+              within 1e-10, their times, each reduction's wall and device
+              memory; sinv(method="native_lu") against the dense sinv on
+              the side-96 DAE; the CLI's three MatrixMarket reads with the
+              native reader and with scipy, equal.
+20. hub      - bench.py::phase_hub's matrix at its TPU size (m = 2^19, 64
+              hubs of degree 4096, s = 16, float32): the hub split's apply
+              against scipy in float64 (<= 1e-5 relative, both
+              directions), 2 ELL-kernel launches per apply, its time
+              beside torch.sparse.mm on the same CSR, its bound and its
+              three parts (bulk ELL, hub-column ELL, D GEMM with its
+              index_add); then a solve on a hub operator at solve_f64's
+              size (m = 65,536, 16 hubs of degree 2048, f64, tol 1e-4):
+              status 0, true residual <= 2 tol, 2 ELL launches per A
+              apply.
 
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  ``--only`` runs env, build and the named
-phases of 8-17 and stops there (no kernel table, no last line).
+phases of 8-20 and stops there (no kernel table, no last line).
 """
 
 import contextlib
+import gc
 import importlib
 import io
 import json
@@ -518,13 +550,52 @@ def host_schur(a, md, b, v, t):
 
 
 CLI_SIDE = 192   # n = 36,864; side 256 (n = 65,536) ran 220-320 s
+SCHUR_KS = (48, 96, 160)   # active sizes whose projected matrices are timed
+
+
+@contextlib.contextmanager
+def capture_projected(store):
+    """Record in ``store`` the projected matrices (A_t, C_t) that the
+    solver hands to ``lyap`` for the schur route: at the first iteration
+    whose active size k reaches each of ``SCHUR_KS`` (keyed by it), and
+    at the largest k reached ("max"), each as (k, a, c)."""
+    from rails_tpu_torch.core import solver as smod
+    from rails_tpu_torch.linalg import dense_lyap
+
+    project_solve, lyap = smod.LyapunovSolver._project_solve, dense_lyap.lyap
+    k_now = [0]
+
+    def recording_project_solve(self, st, ctx):
+        k_now[0] = st.k
+        return project_solve(self, st, ctx)
+
+    def recording_lyap(a, c, *args, **kw):
+        k = k_now[0]
+        if kw.get("method") == "schur":
+            for target in SCHUR_KS:
+                if k >= target and target not in store:
+                    store[target] = (k, a.clone(), c.clone())
+            if k > store.get("max", (0,))[0]:
+                store["max"] = (k, a.clone(), c.clone())
+        return lyap(a, c, *args, **kw)
+
+    smod.LyapunovSolver._project_solve = recording_project_solve
+    dense_lyap.lyap = recording_lyap
+    try:
+        yield store
+    finally:
+        smod.LyapunovSolver._project_solve = project_solve
+        dense_lyap.lyap = lyap
 
 
 def run_cli_schur(torch, spmm, em, tol, side=CLI_SIDE, extra=(),
-                  label="cli_schur"):
+                  label="cli_schur", capture=None):
     """The reference's main-program path through the port's CLI on the
     side-``side`` Laplacian DAE at float64 (``extra``: more CLI flags);
-    counts reset just before ``cli.main``, read just after."""
+    counts reset just before ``cli.main``, read just after.  With a dict
+    ``capture``, the projected matrices of the schur route are recorded
+    there (``capture_projected``)."""
+    from rails_tpu_torch.linalg import dense_lyap
     import scipy.sparse as sp
 
     from rails_tpu_torch import cli
@@ -559,7 +630,9 @@ def run_cli_schur(torch, spmm, em, tol, side=CLI_SIDE, extra=(),
             spmm.dia_spmm.launches = 0
             em.ell_spmm.launches = 0
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
+            with contextlib.redirect_stdout(buf), (
+                    contextlib.nullcontext() if capture is None
+                    else capture_projected(capture)):
                 rc = cli.main([d, "--x64", "--params", p, *extra])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -602,6 +675,7 @@ def run_cli_schur(torch, spmm, em, tol, side=CLI_SIDE, extra=(),
            "lambda1_cli": lam_cli, "lambda1_eigsh": lam_host,
            "lambda1_rel_diff": abs(lam_cli - lam_host) / abs(lam_host),
            "eig_table": table, "scopes": scopes,
+           "schur_route": dense_lyap.CARD_SCHUR_ROUTE,
            "project_solve_share": scopes.get("Solver/project_solve", {})
            .get("total_s", 0.0) / wall}
     mt = re.search(r"Distributed operator: (\w+)", text)
@@ -1162,13 +1236,15 @@ def run_earlier_phases(torch, rt, spmm, em, smi, gen):
 
     # ---- 7. the reference's main-program Schur path through the CLI
     t0 = time.perf_counter()
-    out_cli = run_cli_schur(torch, spmm, em, 1e-4)
-    out_cli.update({"phase_wall_s": time.perf_counter() - t0})
+    captured = {}
+    out_cli = run_cli_schur(torch, spmm, em, 1e-4, capture=captured)
+    out_cli.update({"qr_route_iters": 396,
+                    "phase_wall_s": time.perf_counter() - t0})
     emit(out_cli)
     return {"dia": (main_launches, slice_err, timings[0]),
             "ell": (out_cli["ell_spmm_launches"], ell_slice_err,
                     ell_timings[0]),
-            "solve_f64": out64}
+            "solve_f64": out64, "cli_schur": (out_cli, captured)}
 
 
 def run_wide_phases(torch, rt, spmm, em, wm, refine_mod, smi, gen, only):
@@ -1647,15 +1723,426 @@ def run_mesh_phases(torch, rt, spmm, em, smi, gen, only, solve_f64):
         if out["distributed_operator"] != "DistributedSchurOperator":
             raise AssertionError(f"mesh_schur: the CLI's distributed "
                                  f"operator is {out['distributed_operator']}")
-        out.update({"distribute_schur": apply_row,
+        out.update({"distribute_schur": apply_row, "qr_route_iters": 127,
+                    "qr_route_project_solve_share": 0.955,
                     "phase_wall_s": time.perf_counter() - t0})
         emit(out)
     return launches, halo_err, halo_t
 
 
+def wall_ms(torch, fn, reps):
+    """Median wall ms of ``reps`` calls of ``fn``, each ended by a
+    synchronisation of the card (for work that crosses to the host and
+    back, which CUDA events alone do not time)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def schur_route_case(torch, label, k, a, c):
+    """The routes of the projected Schur solve on one captured (A_t, C_t)
+    on the card: the factor by zgees in a round trip to the host against
+    the QR sweeps (with their count), and the back-substitution on the
+    card against LAPACK's trsyl on the host; each route's X against the
+    card's route."""
+    from rails_tpu_torch.linalg import dense_lyap
+
+    factor = dense_lyap._schur_factor
+    fac = {r: factor(a, route=r) for r in dense_lyap.SCHUR_ROUTES}
+    xs = {r: f(c) for r, f in fac.items()}
+    x_ref = xs[dense_lyap.CARD_SCHUR_ROUTE]
+    qr, calls = torch.linalg.qr, [0]
+
+    def counted_qr(*args, **kw):
+        calls[0] += 1
+        return qr(*args, **kw)
+
+    torch.linalg.qr = counted_qr
+    try:
+        factor(a, route="qr")
+    finally:
+        torch.linalg.qr = qr
+    row = {"case": label, "k_active": k, "k_full": a.shape[0],
+           "qr_sweeps": calls[0],
+           "zgees_round_trip_ms": wall_ms(
+               torch, lambda: factor(a, route="lapack"), 10),
+           "qr_sweeps_ms": wall_ms(torch, lambda: factor(a, route="qr"), 3),
+           "host_factor_ms": wall_ms(
+               torch, lambda: factor(a, route="host"), 10),
+           "backsub_card_ms": wall_ms(torch, lambda: fac["lapack"](c), 5),
+           "ztrsyl_host_ms": wall_ms(torch, lambda: fac["host"](c), 10),
+           "x_rel_diff": {r: ((x - x_ref).norm() / x_ref.norm()).item()
+                          for r, x in xs.items()}}
+    row["route_ms"] = {
+        "lapack": row["zgees_round_trip_ms"] + row["backsub_card_ms"],
+        "host": row["host_factor_ms"] + row["ztrsyl_host_ms"],
+        "qr": row["qr_sweeps_ms"] + row["backsub_card_ms"]}
+    if max(row["x_rel_diff"].values()) > 1e-8:
+        raise AssertionError(f"the Schur routes disagree: {row}")
+    return row
+
+
+def run_schur_lapack(torch, spmm, em, cli):
+    """Phase 18: the projected Schur solve's routes timed on cli_schur's
+    projected matrices, and cli_schur itself on the card's route (run
+    here when phase 7 was skipped)."""
+    from rails_tpu_torch.linalg import dense_lyap
+
+    t0 = time.perf_counter()
+    if cli is None:
+        captured = {}
+        out_cli = run_cli_schur(torch, spmm, em, 1e-4, capture=captured)
+        out_cli["qr_route_iters"] = 396
+        emit(out_cli)
+    else:
+        out_cli, captured = cli
+    rows = [schur_route_case(torch, f"k >= {key}" if key != "max"
+                             else "largest k", *captured[key])
+            for key in (*SCHUR_KS, "max") if key in captured]
+    at_max = rows[-1]["route_ms"]
+    fastest = min(at_max, key=at_max.get)
+    return {"phase": "schur_lapack", "cases": rows,
+            "card_route": dense_lyap.CARD_SCHUR_ROUTE,
+            "fastest_route_at_largest_k": fastest,
+            "rule_agrees": fastest == dense_lyap.CARD_SCHUR_ROUTE,
+            "cli_schur": {key: out_cli[key] for key in (
+                "iters", "qr_route_iters", "converged", "wall_s", "s_per_iter",
+                "project_solve_share", "res_true_f64", "tol",
+                "lambda1_rel_diff", "max_memory_allocated",
+                "ell_spmm_launches")},
+            "cli_driver_load_s": out_cli["scopes"].get(
+                "Driver/load", {}).get("total_s"),
+            "wall_s": time.perf_counter() - t0}
+
+
+def rel_diff(y, ref):
+    return ((y - ref).abs().max() / ref.abs().max()).item()
+
+
+def run_schur_native(torch, em, gen):
+    """Phase 19: ``a11_solver="native_lu"`` against ``"dense_lu"`` on
+    cli_schur's side-192 DAE (S and S' applies, their times, the device
+    memory of each reduction), ``sinv(method="native_lu")`` against the
+    dense one on the side-96 DAE, and the CLI's load (three
+    read_matrix_market calls) with the native reader and with scipy."""
+    import scipy.sparse as sp
+
+    from rails_tpu_torch import io as rio
+    from rails_tpu_torch.native import host_lib
+    from rails_tpu_torch.schur import schur_reduce
+
+    t0 = time.perf_counter()
+    f64 = torch.float64
+    a, md, b = laplacian_dae(CLI_SIDE)
+    x = None
+    out = {"phase": "schur_native", "n": a.shape[0],
+           "n1": int((md == 0).sum()), "s": 8, "solvers": {}}
+    ys = {}
+    for kind in ("native_lu", "dense_lu"):
+        gc.collect()   # earlier phases' garbage out of the base
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        red = schur_reduce(a, md, b, dtype=f64, a11_solver=kind)
+        torch.cuda.synchronize()
+        reduce_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated()
+        held = torch.cuda.memory_allocated() - base
+        op = red.operator
+        if x is None:
+            x = random_x(torch, red.n2, 8, f64, gen)
+        before = em.ell_spmm.launches
+        ys[kind] = (op.matmat(x), op.rmatmat(x))
+        torch.cuda.synchronize()
+        reps = 20 if kind == "native_lu" else 50
+        out["solvers"][kind] = {
+            "reduction_wall_s": reduce_s, "max_memory_allocated": peak,
+            "peak_over_base": peak - base, "held_after": held,
+            "ell_launches_per_apply": (em.ell_spmm.launches - before) / 2,
+            "s_apply_us": wall_ms(torch, lambda: op.matmat(x), reps) * 1e3,
+            "st_apply_us": wall_ms(torch, lambda: op.rmatmat(x), reps)
+            * 1e3}
+        del red, op
+    out["s_rel_diff"] = rel_diff(ys["native_lu"][0], ys["dense_lu"][0])
+    out["st_rel_diff"] = rel_diff(ys["native_lu"][1], ys["dense_lu"][1])
+    del ys
+    torch.cuda.empty_cache()
+
+    # sinv on the side-96 DAE (a dense sinv at side 192 would hold ~11 GB)
+    a96, md96, b96 = laplacian_dae(MESH_CLI_SIDE)
+    red = schur_reduce(a96, md96, b96, dtype=f64)
+    x96 = random_x(torch, red.n2, 8, f64, gen)
+    sinv = {}
+    for method in ("native_lu", "dense_lu"):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        fn = red.sinv(method=method)
+        y = fn(x96)
+        torch.cuda.synchronize()
+        sinv[method] = {"first_call_s": time.perf_counter() - t1,
+                        "peak_over_base": torch.cuda.max_memory_allocated()
+                        - base,
+                        "apply_us": wall_ms(torch, lambda: fn(x96), 10)
+                        * 1e3, "y": y}
+    out["sinv"] = {"n": a96.shape[0], "rel_diff": rel_diff(
+        sinv["native_lu"].pop("y"), sinv["dense_lu"].pop("y")), **sinv}
+    del red, sinv
+    torch.cuda.empty_cache()
+
+    # the CLI's load: the three files it reads, native reader and scipy
+    with tempfile.TemporaryDirectory() as d:
+        files = {"A.mtx": a, "M.mtx": sp.diags(md).tocsr(),
+                 "B.mtx": sp.csr_matrix(b)}
+        for name, arr in files.items():
+            rio.write_matrix_market(os.path.join(d, name), arr)
+        read_native = host_lib.read_matrix_market
+        loads, got = {}, {}
+        for reader in ("native", "scipy"):
+            if reader == "scipy":
+                host_lib.read_matrix_market = lambda path: None
+            try:
+                t1 = time.perf_counter()
+                got[reader] = [rio.read_matrix_market(os.path.join(d, n))
+                               for n in files]
+                loads[reader] = time.perf_counter() - t1
+            finally:
+                host_lib.read_matrix_market = read_native
+    out["load_s"] = loads
+    out["load_equal"] = all((p != q).nnz == 0 for p, q in
+                            zip(got["native"], got["scipy"]))
+    out["wall_s"] = time.perf_counter() - t0
+    if max(out["s_rel_diff"], out["st_rel_diff"]) > 1e-10:
+        raise AssertionError(f"the native_lu S apply disagrees with "
+                             f"dense_lu: {out}")
+    if out["sinv"]["rel_diff"] > 1e-10 or not out["load_equal"]:
+        raise AssertionError(f"native sinv or reader disagrees: {out}")
+    return out
+
+
+HUB_M, HUB_L, HUB_BAND, HUB_COUNT, HUB_DEG = 1 << 19, 8, 64, 64, 4096
+HUB_SOLVE = dict(m=1 << 16, ell_l=8, band=64, n_hubs=16, hub_deg=2048)
+
+
+def hub_bench_matrix():
+    """bench.py::phase_hub's matrix at its TPU size (:683-707): m = 2^19,
+    8 picks per row within +-64 of the diagonal (U[-0.2, 0.2)), 64 hubs
+    of degree 4096 (U[-0.1, 0.1)) with their half-weight partner columns,
+    duplicates summed; then x (m, 16) U[-1, 1), all from default_rng(0)."""
+    import scipy.sparse as sp
+
+    m = HUB_M
+    rng = np.random.default_rng(0)
+    base = np.arange(m)
+    idx = np.clip(base[:, None] + rng.integers(-HUB_BAND, HUB_BAND + 1,
+                                               (m, HUB_L)), 0, m - 1)
+    val = rng.uniform(-1, 1, (m, HUB_L)) * 0.2
+    rows, cols, vals = [np.repeat(base, HUB_L)], [idx.ravel()], [val.ravel()]
+    for hb in rng.choice(m, HUB_COUNT, replace=False):
+        c = rng.choice(m, HUB_DEG, replace=False)
+        v = rng.uniform(-1, 1, HUB_DEG) * 0.1
+        rows += [np.full(HUB_DEG, hb), c]
+        cols += [c, np.full(HUB_DEG, hb)]
+        vals += [v, v * 0.5]
+    a = sp.coo_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                              np.concatenate(cols))),
+                      shape=(m, m)).tocsr()
+    return a, rng.uniform(-1, 1, (m, 16))
+
+
+def superhub_matrix(m, ell_l, band, n_hubs, hub_deg, seed=0):
+    """tests/test_sparse.py:630-640's superhub-with-locality matrix (L
+    picks per row within +-band, U[-1, 1); hub rows U[-1, 1) with their
+    half-weight partner columns, assigned over the bulk), symmetrised,
+    its diagonal set to -(row abs-sum) - 1 as test_solver_hosts_hub_operator
+    does; then B (m, 8) U[0, 1), all from default_rng(seed)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    base = np.arange(m)
+    idx = np.clip(base[:, None] + rng.integers(-band, band + 1, (m, ell_l)),
+                  0, m - 1)
+    val = rng.uniform(-1, 1, (m, ell_l))
+    a = sp.coo_matrix((val.ravel(), (np.repeat(base, ell_l), idx.ravel())),
+                      shape=(m, m)).tocsr().tolil()
+    for hb in rng.choice(m, n_hubs, replace=False):
+        c = rng.choice(m, hub_deg, replace=False)
+        v = rng.uniform(-1, 1, hub_deg)
+        a[hb, c] = v
+        a[c, hb] = v * 0.5
+    a = a.tocsr()
+    a = (a + a.T).tolil()
+    a.setdiag(a.diagonal() - np.abs(a).sum(axis=1).A1 - 1.0)
+    return a.tocsr(), rng.uniform(0, 1, (m, 8))
+
+
+def hub_work(op, s, itemsize):
+    """Bytes the hub apply must move: both ELL payloads (indices at 4
+    bytes), the hub indices, D, x read once, y written once; and its
+    flops (2 per stored value and column)."""
+    m, n = op.shape
+    ells = [e for e in (op.rest, op.hubcol) if e is not None]
+    slots = sum(e.indices.numel() for e in ells)
+    h = op.hub_idx.numel()
+    nbytes = (slots * (4 + itemsize) + h * 8 + h * n * itemsize
+              + (n + m) * s * itemsize)
+    return nbytes, 2 * (slots + h * n) * s
+
+
+def run_hub(torch, rt, em, gen):
+    """Phase 20: the hub split on the card - bench.py::phase_hub's matrix
+    (apply against scipy in f64 and torch.sparse.mm, its time split three
+    ways), then a solve on a hub operator at solve_f64's size, ELL
+    launches counted through it."""
+    from rails_tpu_torch.sparse.ell_spmm import ell_spmm_reference
+    from rails_tpu_torch.utils.dtypes import full_precision
+
+    t0 = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    a, xh = hub_bench_matrix()
+    t1 = time.perf_counter()
+    op = rt.hub_operator(a, max_hubs=HUB_COUNT, degree_factor=8.0,
+                         dtype=f32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    x = torch.from_numpy(xh).to("cuda", f32)
+    x64 = x.double().cpu().numpy()
+    errs = {}
+    for name, ref in (("matmat", a @ x64), ("rmatmat", a.T @ x64)):
+        y = getattr(op, name)(x).double().cpu().numpy()
+        errs[name] = float(np.abs(y - ref).max() / np.abs(ref).max())
+    before = em.ell_spmm.launches
+    op.matmat(x)
+    torch.cuda.synchronize()
+    per_apply = em.ell_spmm.launches - before
+    s = x.shape[1]
+    nbytes, flops = hub_work(op, s, 4)
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "CSR support is in beta"
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(a.indptr.astype(np.int64)),
+            torch.from_numpy(a.indices.astype(np.int64)),
+            torch.from_numpy(a.data.astype(np.float32)), size=a.shape,
+            device="cuda")
+    lib_err = rel_diff(torch.sparse.mm(csr, x), op.matmat(x))
+    xhub = x.index_select(0, op.hub_idx)
+    yacc = torch.zeros_like(x)
+
+    def d_part():
+        with full_precision():
+            yacc.index_add_(0, op.hub_idx, op.d @ x)
+
+    def d_chunked():
+        # the same product as one batched GEMM over 1024-column chunks of
+        # D and a sum: a yardstick for the single GEMM
+        h, n = op.d.shape
+        q = n // 1024
+        with full_precision():
+            return torch.bmm(op.d.as_strided((q, h, 1024), (1024, n, 1)),
+                             x[:q * 1024].reshape(q, 1024, s)).sum(0)
+
+    def plain(z):
+        y = ell_spmm_reference(op.rest, z) + ell_spmm_reference(
+            op.hubcol, z.index_select(0, op.hub_idx))
+        with full_precision():
+            return y.index_add_(0, op.hub_idx, op.d @ z)
+
+    apply_ms = time_ms(torch, op.matmat, [(x,)], 50)
+    bench = {
+        "m": HUB_M, "nnz": int(a.nnz), "hubs": int(op.hub_idx.numel()),
+        "hub_deg": HUB_DEG, "s": s, "dtype": "float32",
+        "rest_L": int(op.rest.indices.shape[1]),
+        "hubcol_L": int(op.hubcol.indices.shape[1]),
+        "d_bytes": op.d.numel() * 4, "build_s": build_s,
+        "hub_rel_err": errs["matmat"], "hub_rel_err_rmatmat":
+        errs["rmatmat"], "ell_launches_per_apply": per_apply,
+        "ms": apply_ms, "call_ms": time_ms(torch, op.matmat, [(x,)], 50,
+                                           backlog=False),
+        "rmatmat_ms": time_ms(torch, op.rmatmat, [(x,)], 50),
+        "plain_ms": time_ms(torch, plain, [(x,)], 5),
+        "library_ms": time_ms(torch, torch.sparse.mm, [(csr, x)], 20),
+        "library_rel_diff": lib_err, "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": nbytes, "bound_share": b_ms / apply_ms,
+        "split_ms": {
+            "bulk_ell": time_ms(torch, em.ell_spmm, [(op.rest, x)], 50),
+            "hubcol_ell": time_ms(torch, em.ell_spmm,
+                                  [(op.hubcol, xhub)], 50),
+            "d_gemm_index_add": time_ms(torch, d_part, [()], 50),
+            "d_chunked_gemm": time_ms(torch, d_chunked, [()], 50)}}
+    if max(errs.values()) > 1e-5 or per_apply != 2:
+        raise AssertionError(f"hub apply: error above 1e-5 or not 2 ELL "
+                             f"launches per apply: {bench}")
+    del op, csr, x, xhub, yacc, a
+    torch.cuda.empty_cache()
+
+    # a solve on a hub operator at solve_f64's size and parameters
+    a, b = superhub_matrix(**HUB_SOLVE)
+    op = rt.hub_operator(a, dtype=f64)
+    solver = rt.LyapunovSolver(op, b, None, dtype=f64, **OPTS64)
+    applies = count_applies(solver.A)
+    torch.cuda.synchronize()
+    em.ell_spmm.launches = 0
+    t1 = time.perf_counter()
+    v, t, info = solver.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = em.ell_spmm.launches
+    v64 = v.detach().cpu().double().numpy()
+    res_true = factored_residual(a @ v64, v64, b, t.detach().cpu().double()
+                                 .numpy(), np.random.default_rng(1))
+    solve = {"m": a.shape[0], "nnz": int(a.nnz),
+             "hubs": int(op.hub_idx.numel()), "dtype": "float64",
+             "iters": info.iter, "status": info.status, "res": info.res,
+             "converged": info.converged, "rank": int(v.shape[1]),
+             "wall_s": wall, "a_applies": applies[0],
+             "ell_spmm_launches": launches,
+             "ell_launches_per_apply": launches / max(applies[0], 1),
+             "res_true_f64": res_true, "tol": OPTS64["tol"]}
+    if info.status != 0 or res_true > 2 * OPTS64["tol"] \
+            or launches != 2 * applies[0]:
+        raise AssertionError(f"hub solve failed its checks: {solve}")
+    return {"phase": "hub", "bench": bench, "solve": solve,
+            "wall_s": time.perf_counter() - t0}, launches
+
+
+def run_host_phases(torch, rt, spmm, em, gen, only, cli):
+    """Phases 18-20 (this slice's: the LAPACK Schur route, the native
+    host library, the hub split), each emitting its line, those not in
+    ``only`` skipped (None: all).  ``cli``: phase 7's (line, captured
+    matrices), None when it was skipped.  Returns the ELL launches of
+    the hub solve (None when skipped)."""
+    def want(name):
+        return only is None or name in only
+
+    if want("schur_lapack"):
+        emit(run_schur_lapack(torch, spmm, em, cli))
+        torch.cuda.empty_cache()
+    if want("schur_native"):
+        emit(run_schur_native(torch, em, gen))
+        torch.cuda.empty_cache()
+    launches = None
+    if want("hub"):
+        out, launches = run_hub(torch, rt, em, gen)
+        emit(out)
+    return launches
+
+
 NEW_PHASES = ("compare_wide", "timing_wide", "refined_acc", "refined_scale",
               "continuation_wide", "compare_halo", "timing_halo",
-              "mesh_solve", "mesh_ell", "mesh_schur")
+              "mesh_solve", "mesh_ell", "mesh_schur", "schur_lapack",
+              "schur_native", "hub")
 
 
 def parse_only(argv):
@@ -1704,7 +2191,11 @@ def main():
     # ---- 2. build
     t0 = time.perf_counter()
     report = _build.build_all()
+    t1 = time.perf_counter()
+    host_lib = _build.load_host()   # the C++ host library, by g++
     emit({"phase": "build", "kernels": report,
+          "host_library": {"path": host_lib._name,
+                           "seconds": time.perf_counter() - t1},
           "wall_s": time.perf_counter() - t0})
 
     gen = torch.Generator("cuda").manual_seed(0)
@@ -1715,6 +2206,9 @@ def main():
                            only)
     halo = run_mesh_phases(torch, rt, spmm, em, smi, gen, only,
                            None if earlier is None else earlier["solve_f64"])
+    hub_launches = run_host_phases(
+        torch, rt, spmm, em, gen, only,
+        None if earlier is None else earlier["cli_schur"])
     if only is not None:
         return
 
@@ -1729,14 +2223,15 @@ def main():
     wide_row = row("wide_spmm", "rails_tpu_torch/csrc/wide_spmm.cu",
                    "rails_tpu/sparse/wide_spmm.py:136", *wide)
     wide_row["ell_ms"] = wide[2]["ell_ms"]
+    ell_row = row("ell_spmm", "rails_tpu_torch/csrc/ell_spmm.cu",
+                  "rails_tpu/sparse/ell_spmm.py:344", *earlier["ell"])
+    ell_row["hub_solve_launches"] = hub_launches
     emit({"kernels": [
         row("dia_spmm", "rails_tpu_torch/csrc/dia_spmm.cu",
             "rails_tpu/sparse/spmm.py:75", *earlier["dia"]),
         row("dia_spmm_halo", "rails_tpu_torch/csrc/dia_spmm_halo.cu",
             "rails_tpu/sparse/spmm.py:414", *halo),
-        row("ell_spmm", "rails_tpu_torch/csrc/ell_spmm.cu",
-            "rails_tpu/sparse/ell_spmm.py:344", *earlier["ell"]),
-        wide_row], "total_wall_s": time.perf_counter() - t_start})
+        ell_row, wide_row], "total_wall_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

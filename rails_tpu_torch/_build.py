@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its C++ host library.
 
 Every ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, ``build/rails_tpu_torch/
@@ -12,6 +12,12 @@ uses only the sources in this checkout and the installed CUDA toolkit
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits
 for them; it returns each kernel's build seconds and ``-Xptxas -v``
 lines (registers, stack, spills).
+
+``load_host()`` builds ``native/librails_host.cpp`` (the sparse LU and
+the MatrixMarket reader) the same way with ``g++ -O2 -shared -fPIC
+-std=c++17`` into ``build/rails_tpu_torch/librails_host-<hash>.so`` at
+first use.  A failed build raises with g++'s output: there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -26,13 +32,16 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["build_all", "load", "sources", "BUILD_DIR"]
+__all__ = ["build_all", "load", "load_host", "sources", "BUILD_DIR",
+           "HOST_SOURCE"]
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "rails_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_SOURCE = PKG_DIR / "native" / "librails_host.cpp"
+HOST_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -54,9 +63,9 @@ def _nvcc() -> str:
     return found
 
 
-def _target(src: Path) -> Path:
+def _target(src: Path, flags=NVCC_FLAGS) -> Path:
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -112,4 +121,34 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build_all([name])
             lib = _loaded[name] = ctypes.CDLL(str(_target(sources()[name])))
+        return lib
+
+
+def build_host() -> Path:
+    """Compile the host library if it is not built yet; returns its
+    path.  Raises with g++'s output if the build fails."""
+    out = _target(HOST_SOURCE, HOST_FLAGS)
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the host library "
+                           f"{HOST_SOURCE.name} builds with g++")
+    proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp),
+                           str(HOST_SOURCE)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"host library build failed: g++ exit "
+                           f"{proc.returncode}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_host() -> ctypes.CDLL:
+    """The built host library, building it at first use."""
+    with _lock:
+        lib = _loaded.get("librails_host")
+        if lib is None:
+            lib = _loaded["librails_host"] = ctypes.CDLL(str(build_host()))
         return lib

@@ -19,13 +19,14 @@ from rails_tpu_torch.core.options import SolverOptions
 from rails_tpu_torch.operators import DenseOperator, DiagonalOperator
 from rails_tpu_torch.sparse.formats import (
     DiaMatrix, EllMatrix, HybMatrix, SparseOperator)
+from rails_tpu_torch.sparse.hub import HubSplitOperator
 from rails_tpu_torch.sparse.wide_spmm import (
     CHUNK, MIN_S_DEFAULT, WideWindow)
 from rails_tpu_torch.utils.device import as_tensor, resolve_device
 
-__all__ = ["dia_payload", "ell_payload", "hyb_payload", "sparse_operator",
-           "diagonal_operator", "dense_operator", "rhs", "solver_options",
-           "restart_data", "wide_window"]
+__all__ = ["dia_payload", "ell_payload", "hyb_payload", "hub_payload",
+           "sparse_operator", "diagonal_operator", "dense_operator", "rhs",
+           "solver_options", "restart_data", "wide_window"]
 
 # SolverOptions fields that carry an array (moved to the device) and the
 # derived fields __post_init__ sets (not constructor arguments)
@@ -108,6 +109,33 @@ def _payload(p: Mapping, device, dtype):
                            device=device, dtype=dtype)
     return dia_payload(p["data"], p["offsets"], p["shape"], device=device,
                        dtype=dtype)
+
+
+def hub_payload(rest: Mapping, hubcol: Optional[Mapping], hub_idx, d,
+                shape: Tuple[int, int], *, bwd: Optional[Mapping] = None,
+                is_symmetric: bool = False, is_hurwitz: bool = False,
+                nnz: int = 0, device=None, dtype=None) -> HubSplitOperator:
+    """A ``HubSplitOperator`` from the JAX package's ``HubSplitOperator``
+    arrays: ``rest`` and ``hubcol`` as ELL dicts {indices, values, shape}
+    (``hubcol`` None when absent), ``hub_idx`` (h,), ``d`` (h, n) or
+    None, ``shape``, and ``bwd`` the transpose's split as a dict {rest,
+    hubcol, hub_idx, d, shape} (None when symmetric)."""
+    dev = resolve_device(device)
+
+    def ell(p):
+        return None if p is None else ell_payload(
+            p["indices"], p["values"], p["shape"], device=dev, dtype=dtype)
+
+    back = None if bwd is None else hub_payload(
+        bwd["rest"], bwd.get("hubcol"), bwd["hub_idx"], bwd.get("d"),
+        bwd["shape"], device=dev, dtype=dtype)
+    return HubSplitOperator(
+        ell(rest), ell(hubcol),
+        as_tensor(np.asarray(hub_idx, np.int64), dev),
+        None if d is None else as_tensor(np.asarray(d), dev, dtype),
+        (int(shape[0]), int(shape[1])), bwd=back,
+        is_symmetric=bool(is_symmetric), is_hurwitz=bool(is_hurwitz),
+        nnz=int(nnz))
 
 
 def sparse_operator(fwd: Mapping, bwd: Optional[Mapping] = None, *,

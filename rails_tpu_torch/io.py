@@ -1,7 +1,9 @@
 """Matrix I/O: MatrixMarket files and the DataErik ocean-model format - a
 copy of the JAX package's ``io.py`` (the port imports nothing of that
-package).  MatrixMarket goes through ``scipy.io``, the JAX package's own
-fallback when its native parser is absent.
+package).  MatrixMarket coordinate files go through the port's C++
+reader (``native/host_lib.py``), as the JAX package reads them with its
+own; ``scipy.io`` reads the variants that reader declines (array format,
+complex, hermitian, skew-symmetric).
 
 - MatrixMarket load/store of A/B/M and the V/T checkpoint
   (the reference's EpetraExt I/O, src/main.cpp:62-72,123-138);
@@ -42,6 +44,11 @@ REFERENCE_DATAERIK = str(Path(__file__).resolve().parent.parent / "data"
 
 def read_matrix_market(path: str):
     """Returns scipy CSR (coordinate files) or ndarray (array files)."""
+    from rails_tpu_torch.native import host_lib
+
+    out = host_lib.read_matrix_market(path)
+    if out is not None:
+        return out
     m = scipy.io.mmread(path)
     return m.tocsr() if sp.issparse(m) else np.asarray(m)
 

@@ -10,9 +10,11 @@ which is the role SLICOT's ``sb03md`` (standard) and ``sg03ad``
 
 - ``eigh``: symmetric A.  ``A = Q diag(w) Q'`` then
   ``X = -Q ((Q'CQ) / (w_i + w_j)) Q'``.
-- ``schur``: general A.  Complex Schur decomposition by the port's own
-  Hessenberg + shifted-QR iteration (``schur_qr.py``; PyTorch has no
-  Schur), then Bartels-Stewart back-substitution on the triangular factor.
+- ``schur``: general A.  Complex Schur decomposition, then Bartels-Stewart
+  back-substitution on the triangular factor.  PyTorch has no Schur, so
+  the factor comes from LAPACK's zgees through scipy on the host (the
+  JAX package's CPU route), or from the port's own Hessenberg +
+  shifted-QR iteration (``schur_qr.py``) where asked for (``SCHUR_ROUTES``).
 - ``sign``: Newton iteration for the matrix sign function, Hurwitz A.
 - ``kron``: O(k^6) Kronecker linear solve; robust oracle and small-k
   fallback.
@@ -29,10 +31,12 @@ from __future__ import annotations
 import functools
 from typing import Optional
 
+import scipy.linalg
 import torch
 
 from rails_tpu_torch.linalg.schur_qr import complex_schur
 from rails_tpu_torch.utils.dtypes import complex_dtype_for, highest_precision
+from rails_tpu_torch.utils.host_blas import single_thread_blas
 
 __all__ = ["lyap", "lyap_residual"]
 
@@ -119,7 +123,61 @@ def _eigh_factor(a):
     return solve
 
 
-def _schur_factor(a, max_sweeps: Optional[int] = None):
+# The routes of the Schur factor (``lyap``'s private ``_schur_route``):
+# - "lapack": LAPACK's complex Schur (zgees, scipy) on the host, the
+#   factors moved to a's device, then the JAX package's column-by-column
+#   back-substitution there.  The route of a CPU tensor, as the JAX
+#   package takes zgees on the CPU (rails_tpu/linalg/dense_lyap.py:
+#   165-171).
+# - "host": zgees and the whole Bartels-Stewart step (ztrsyl on T, T^H)
+#   on the host: one k x k round trip per factor and one per solve.
+# - "qr": the port's own shifted-QR sweeps (``complex_schur``) and the
+#   back-substitution on a's device; each sweep reads the active size
+#   back to the host.
+SCHUR_ROUTES = ("lapack", "host", "qr")
+# The route of a CUDA tensor: a fixed choice, measured by chip_smoke.py's
+# schur_lapack phase on cli_schur's projected matrices (side 192, f64;
+# the matrix is 144 or 184 square, k of it active), factor + one solve on
+# an H100 80GB HBM3 at 700.00 W with its 8-core host:
+#   k active      48     96    160    167
+#   "host"      15.1   27.2   51.3   60.3 ms
+#   "lapack"    24.8   38.2   67.1   71.1 ms (back-substitution 20-36)
+#   "qr"         208    323    603    535 ms (111-346 QR sweeps)
+CARD_SCHUR_ROUTE = "host"
+
+
+def schur_route(a: torch.Tensor, route: Optional[str] = None) -> str:
+    """The Schur route for ``a``: ``route`` when given, else "lapack" on
+    the CPU and ``CARD_SCHUR_ROUTE`` on the card."""
+    if route is None:
+        route = "lapack" if a.device.type == "cpu" else CARD_SCHUR_ROUTE
+    if route not in SCHUR_ROUTES:
+        raise ValueError(f"unknown Schur route {route!r}")
+    return route
+
+
+def _lapack_schur(a: torch.Tensor):
+    """zgees (cgees at single precision) of a complex tensor on the host:
+    numpy (t, u) with a = u t u^H, on one BLAS thread.  scipy factors a
+    copy: a CPU tensor's memory is the array's."""
+    a = a.detach().cpu().numpy()
+    with single_thread_blas():
+        return scipy.linalg.schur(a, output="complex", check_finite=False)
+
+
+def schur_factors(a: torch.Tensor, route: Optional[str] = None,
+                  max_sweeps: Optional[int] = None):
+    """Complex Schur factors (t, u) of a complex tensor, on its device:
+    LAPACK on the host ("lapack", "host") or ``complex_schur`` ("qr")."""
+    if schur_route(a, route) == "qr":
+        return complex_schur(a, max_sweeps=max_sweeps)
+    t, u = _lapack_schur(a)
+    return (torch.from_numpy(t).to(a.device),
+            torch.from_numpy(u).to(a.device))
+
+
+def _schur_factor(a, max_sweeps: Optional[int] = None,
+                  route: Optional[str] = None):
     """General A via complex Schur + Bartels-Stewart back-substitution.
 
     A = U T U^H, so the equation becomes T Y + Y T^H = -U^H C U with
@@ -127,10 +185,16 @@ def _schur_factor(a, max_sweeps: Optional[int] = None):
     last column to the first:
 
         (T + conj(T[j,j]) I) y_j = g_j - sum_{i>j} conj(T[j,i]) y_i.
+
+    ``route``: ``SCHUR_ROUTES``; None picks by a's device
+    (``schur_route``).
     """
     k = a.shape[0]
     cdtype = complex_dtype_for(a.dtype)
-    t, u = complex_schur(a.to(cdtype), max_sweeps=max_sweeps)
+    route = schur_route(a, route)
+    if route == "host":
+        return _host_schur_factor(a, cdtype)
+    t, u = schur_factors(a.to(cdtype), route, max_sweeps)
     eye = torch.eye(k, dtype=cdtype, device=a.device)
     col_ids = torch.arange(k, device=a.device)
     zero = torch.zeros((), dtype=cdtype, device=a.device)
@@ -146,6 +210,24 @@ def _schur_factor(a, max_sweeps: Optional[int] = None):
                 upper=True)[:, 0]
         x = u @ y @ u.mH
         return _sym(x.real.to(a.dtype))
+
+    return solve
+
+
+def _host_schur_factor(a, cdtype):
+    """The "host" route: T Y + Y T^H = G by LAPACK's trsyl, X = Re(U Y
+    U^H), all on the host; each solve moves C there and X back."""
+    t, u = _lapack_schur(a.to(cdtype))
+    trsyl = scipy.linalg.get_lapack_funcs("trsyl", (t,))
+    uh = u.conj().T
+    rdtype = t.real.dtype
+
+    def solve(c):
+        c = c.detach().cpu().numpy().astype(t.dtype)
+        with single_thread_blas():
+            y, scale, _ = trsyl(t, t, -(uh @ c @ u), trana="N", tranb="C")
+            x = (u @ (y / scale) @ uh).real.astype(rdtype)
+        return _sym(torch.from_numpy(x).to(a.device))
 
     return solve
 
@@ -182,7 +264,8 @@ def lyap(a: torch.Tensor, c: torch.Tensor, e: Optional[torch.Tensor] = None,
          *, method: str = "schur", assume_e_spd: bool = False,
          e_kind: Optional[str] = None, sign_iterations: int = 30,
          refine: Optional[int] = None,
-         refine_generalized: Optional[int] = None) -> torch.Tensor:
+         refine_generalized: Optional[int] = None,
+         _schur_route: Optional[str] = None) -> torch.Tensor:
     """Solve A X E' + E X A' + C = 0 for symmetric X.
 
     Args:
@@ -231,9 +314,10 @@ def lyap(a: torch.Tensor, c: torch.Tensor, e: Optional[torch.Tensor] = None,
     if e is not None:
         a_red, c_fwd, back = _reduce_generalized(a, c, e, e_kind)
 
-    if method in ("eigh", "schur"):
-        factor = _eigh_factor if method == "eigh" else _schur_factor
-        slv = factor(a_red)
+    if method == "eigh":
+        slv = _eigh_factor(a_red)
+    elif method == "schur":
+        slv = _schur_factor(a_red, route=_schur_route)
     elif method == "sign":
         slv = functools.partial(_lyap_sign, a_red,
                                 iterations=sign_iterations)

@@ -17,10 +17,13 @@ and the solver runs on (S, MS, BS).  Here:
   every apply of S launches the ELL kernel three times;
 - the A11 solve is pluggable (``a11_solver``): ``'dense_lu'`` (default)
   factors A11 densely on the device once with ``torch.linalg.lu_factor``
-  and applies it with ``lu_solve``; ``'iterative'`` runs a
+  and applies it with ``lu_solve``; ``'native_lu'`` factors A11 once
+  with the port's C++ sparse LU on the host (``native/host_lib.py``) and
+  solves there, each solve a round trip device -> numpy -> LU -> device
+  (the counterpart of the JAX package's ``pure_callback``), O(nnz of the
+  factors) memory where the dense LU holds n1^2; ``'iterative'`` runs a
   Jacobi-preconditioned BiCGStab whose matvec is the A11 sparse operator
   (format by ``'auto'``); or any callable (MATLAB's opts.Ainv contract).
-  ``'native_lu'`` (the JAX package's C++ host LU) is not ported.
 
 Post-solution analysis (the full-space solution operator for eigenvalue
 extraction, and its trace, C++ SchurOperator::Apply(hasSolution)/Trace,
@@ -43,8 +46,23 @@ from rails_tpu_torch.utils.device import as_tensor, resolve_device
 
 __all__ = ["SchurReduction", "schur_reduce"]
 
-_NATIVE_TODO = ("the C++ host library (rails_tpu/native, the 'native_lu' "
-                "sparse LU) is not ported yet: ROADMAP Queue 1")
+
+def _host_solver(lu, trans: bool, rows=None, n=None):
+    """x -> the native LU's solve of x on the host, back on x's device in
+    x's dtype.  With ``rows`` (and the full size ``n``), x is scattered
+    into those rows of a zero right-hand side and the solution read back
+    from them (``sinv``'s reorder trick)."""
+    def solve(x):
+        xh = x.detach().cpu().double().numpy()
+        if rows is not None:
+            rhs = np.zeros((n,) + xh.shape[1:])
+            rhs[rows] = xh
+            xh = lu.solve(rhs, trans=trans)[rows]
+        else:
+            xh = lu.solve(xh, trans=trans)
+        return torch.from_numpy(xh).to(device=x.device, dtype=x.dtype)
+
+    return solve
 
 
 def _bicgstab(matvec, b: torch.Tensor, *, tol: float, maxiter: int,
@@ -155,6 +173,7 @@ class SchurReduction:
             self.bs = as_tensor(b[self.idx2], self.device, self.dtype)
         self.mvps = 0
         self._sinv_factors = None
+        self._sinv_native = None
         if factorize_sinv:
             # MATLAB RAILSschur(A, M, B, true) pre-factorizes the whole-A
             # LU used by Sinv at reduction time (RAILSschur.m:51-64)
@@ -195,7 +214,14 @@ class SchurReduction:
             self.a11_solve = lambda x: lu_apply(x, False)
             self.a11_solve_t = lambda x: lu_apply(x, True)
         elif a11_solver == "native_lu":
-            raise NotImplementedError(_NATIVE_TODO)
+            if self.n1 == 0:
+                self.a11_solve = self.a11_solve_t = lambda x: x
+                return
+            from rails_tpu_torch.native.host_lib import NativeSparseLU
+
+            lu = NativeSparseLU(self._a11_scipy)
+            self.a11_solve = _host_solver(lu, False)
+            self.a11_solve_t = _host_solver(lu, True)
         elif a11_solver == "iterative":
             # the scalable device-side option: O(nnz) memory, where the
             # dense LU needs O(n1^2).  Suited to diagonally dominant /
@@ -291,9 +317,17 @@ class SchurReduction:
     def sinv(self, method: str = "dense_lu") -> Callable:
         """x -> S^{-1} x via a full-A solve with the reorder trick
         (RAILSschur.m:57-64): solve A z = P' [0; x], return z[idx2].
-        ``method='dense_lu'`` factors A densely on the device (cached)."""
+        ``method='dense_lu'`` factors A densely on the device (cached);
+        ``method='native_lu'`` factors it with the C++ sparse LU on the
+        host (cached) and solves there, the scalable choice for a large
+        sparse A (the role of MATLAB's sparse ``lu``, RAILSschur.m:31-33).
+        """
         if method == "native_lu":
-            raise NotImplementedError(_NATIVE_TODO)
+            if self._sinv_native is None:
+                from rails_tpu_torch.native.host_lib import NativeSparseLU
+
+                self._sinv_native = NativeSparseLU(self._a_scipy)
+            return _host_solver(self._sinv_native, False, self.idx2, self.n)
         if method != "dense_lu":
             raise ValueError(f"unknown sinv method {method!r}")
         if self._sinv_factors is None:

@@ -3,10 +3,13 @@
 Random stable problems (k = 2..40) built with numpy from a seed go
 through ``rails_tpu.linalg.dense_lyap.lyap`` and the port's ``lyap`` at
 float64, for every method and for no E, an SPD E and a general E.  The
-two solutions must agree to 1e-10 relative in the Frobenius norm.  The
-schur method takes different routes (LAPACK's Schur in the JAX package
-on the CPU, the port's own shifted-QR Schur), so the agreement also
-checks the port's Schur decomposition.
+two solutions must agree to 1e-10 relative in the Frobenius norm.  On the
+CPU both packages take LAPACK's complex Schur (zgees) for the schur
+method, then the same back-substitution: held to 1e-12 relative up to
+k = 160, the projected size of the CLI's Schur path.  The port's other
+routes (``_schur_route``): "host" (zgees and LAPACK's trsyl for the
+whole Bartels-Stewart step, on the host; the card's route) to 1e-11, and
+"qr" (the port's own shifted-QR Schur, ``complex_schur``) to 1e-10.
 """
 
 import jax.numpy as jnp
@@ -14,7 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+from rails_tpu.eigs import eigs_general as jax_eigs_general
 from rails_tpu.linalg.dense_lyap import lyap as jax_lyap
+from rails_tpu.operators import DenseOperator as JaxDense
+from rails_tpu_torch.eigs import _small_eig
+from rails_tpu_torch.linalg import dense_lyap
 from rails_tpu_torch.linalg.dense_lyap import lyap, lyap_residual
 from rails_tpu_torch.linalg.schur_qr import complex_schur, hessenberg
 
@@ -85,3 +92,79 @@ def test_hessenberg(rng):
     h, q = h.numpy(), q.numpy()
     assert np.allclose(q @ h @ q.T, a.numpy(), atol=1e-12)
     assert np.allclose(np.tril(h, -2), 0, atol=1e-12)
+
+
+def _jax_and_port(rng, k, route):
+    a, c, _ = stable_problem(rng, k, "schur", None)
+    xj = np.asarray(jax_lyap(jnp.asarray(a), jnp.asarray(c),
+                             method="schur"))
+    t = torch.from_numpy
+    xt = lyap(t(a), t(c), method="schur", _schur_route=route).numpy()
+    return a, c, xj, xt
+
+
+@pytest.mark.parametrize("k", [2, 13, 40, 96, 160])
+def test_lapack_route_matches_jax(rng, k):
+    """The CPU route (no route given): zgees on the host, the JAX
+    package's back-substitution."""
+    a, c, xj, xt = _jax_and_port(rng, k, None)
+    assert dense_lyap.schur_route(torch.from_numpy(a)) == "lapack"
+    assert np.linalg.norm(xt - xj) <= 1e-12 * np.linalg.norm(xj)
+
+
+@pytest.mark.parametrize("route,tol", [("host", 1e-11), ("qr", 1e-10)])
+@pytest.mark.parametrize("k", [13, 96])
+def test_other_routes_match_jax(rng, route, tol, k):
+    """The card's route (trsyl on the host) and the QR sweeps, reached
+    through the private route argument, on the CPU."""
+    _, _, xj, xt = _jax_and_port(rng, k, route)
+    assert np.linalg.norm(xt - xj) <= tol * np.linalg.norm(xj)
+
+
+def test_route_rule_and_unknown_route():
+    a = torch.eye(3, dtype=torch.float64)
+    assert dense_lyap.schur_route(a, "qr") == "qr"
+    assert dense_lyap.CARD_SCHUR_ROUTE in dense_lyap.SCHUR_ROUTES
+    with pytest.raises(ValueError, match="Schur route"):
+        lyap(-a, a, method="schur", _schur_route="zgees")
+
+
+@pytest.mark.parametrize("route", [None, "qr"])
+def test_small_eig_matches_jax_eigs_general(rng, route):
+    """``eigs``' small eigenproblem on a nonsymmetric matrix (complex
+    pairs): its eigenvalues against the JAX package's ``eigs_general`` on
+    the whole space (subspace = k, so both are exact) to 1e-10 relative,
+    and each pair's residual to 1e-10."""
+    k = 24
+    a = rng.uniform(-1, 1, (k, k))
+    lam, vec = _small_eig(torch.from_numpy(a).to(torch.complex128), route)
+    lam, vec = lam.numpy(), vec.numpy()
+    ej = np.asarray(jax_eigs_general(JaxDense(jnp.asarray(a)), num=k,
+                                     subspace=k, tol=1e-10)[0])
+    scale = np.abs(ej).max()
+    for e in ej:   # every JAX eigenvalue has its port counterpart
+        assert np.abs(lam - e).min() <= 1e-10 * scale
+    r = a @ vec - vec * lam[None, :]
+    assert np.linalg.norm(r, axis=0).max() <= 1e-10 * scale
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card's Schur route")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "lapack", "host", "qr"])
+def test_card_route_matches_cpu_lapack(rng, cuda_device, route):
+    """The card's Schur routes (None: ``CARD_SCHUR_ROUTE``) against the
+    CPU's LAPACK route on the same matrix, k = 96."""
+    a, c, _ = stable_problem(rng, 96, "schur", None)
+    t = torch.from_numpy
+    x_cpu = lyap(t(a), t(c), method="schur").numpy()
+    x_card = lyap(t(a).to(cuda_device), t(c).to(cuda_device),
+                  method="schur", _schur_route=route)
+    assert x_card.device.type == "cuda"
+    x_card = x_card.cpu().numpy()
+    assert np.linalg.norm(x_card - x_cpu) <= 1e-10 * np.linalg.norm(x_cpu)

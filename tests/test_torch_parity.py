@@ -143,9 +143,8 @@ def test_generalized_dia_laplacian(rng, jax_sign_fixed):
 
 @pytest.mark.parametrize("with_m", [False, True])
 def test_nonsymmetric_untagged_dia(rng, jax_sign_fixed, with_m):
-    """A convection-diffusion stencil with no tags: the schur route (the
-    JAX package runs LAPACK's Schur on the CPU, the port its own
-    shifted-QR Schur)."""
+    """A convection-diffusion stencil with no tags: the schur route (on
+    the CPU both packages take LAPACK's complex Schur, zgees)."""
     side = 8
     n = side * side
     a = laplacian2_sparse(side) \

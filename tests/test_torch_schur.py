@@ -178,10 +178,16 @@ def test_callable_and_unported_solvers(rng):
     x = torch.from_numpy(rng.uniform(-1, 1, (red_d.n2, 2)))
     _close(red_c.operator.rmatmat(x), red_d.operator.rmatmat(x).numpy(),
            1e-12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        schur_reduce(a, md, b, device="cpu", a11_solver="native_lu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        red_d.sinv(method="native_lu")
+    # the solvers once unported: the C++ sparse LU on the host, for the
+    # A11 solves of S (both directions) and for sinv, against dense_lu
+    red_n = schur_reduce(a, md, b, dtype=torch.float64, device="cpu",
+                         a11_solver="native_lu")
+    yd = red_d.operator.matmat(x).numpy()
+    _close(red_n.operator.matmat(x), yd, 1e-12)
+    _close(red_n.operator.rmatmat(x), red_d.operator.rmatmat(x).numpy(),
+           1e-12)
+    _close(red_d.sinv(method="native_lu")(x),
+           red_d.sinv()(x).numpy(), 1e-12)
 
 
 @pytest.mark.parametrize("problem,opts", [
