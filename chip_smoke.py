@@ -161,9 +161,31 @@ exits nonzero and never prints the last line):
               status 0, true residual <= 2 tol, 2 ELL launches per A
               apply.
 
+21. compiled_solve - solve_f64's and solve_f32's problems through
+              ``solve(compiled=True)``: the iteration recorded into CUDA
+              graphs and replayed (core/engine.py), each beside the
+              eager run of phases 5-6: iterations and status both ways
+              (within 1%), the f64 true residual <= 2 tol, wall and s per
+              iteration both ways, graph segments, host reads and kernel
+              launches per iteration, capture seconds, peak memory; the
+              graph check (one DIA apply and one ELL apply captured and
+              replayed, equal to the eager launch and within the
+              kernel's tolerance of the plain version); kernel #1 at
+              solve_f64's shape through both branches, back to back from
+              the host and from one graph.
+22. compiled_mesh - mesh_solve (phase 15) through the recorded
+              iteration, beside the eager run.
+23. compiled_refined - refined_scale (phase 11), every stage through
+              the recorded iteration, beside the eager run.
+24. compiled_continuation - continuation_wide (phase 12) with
+              compiled steps through one engine cache: its size after
+              each step ([1, 2, 2]: the cold and the warm engines), no
+              capture on the third step.
+
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  ``--only`` runs env, build and the named
-phases of 8-20 and stops there (no kernel table, no last line).
+phases of 8-24 and stops there (no kernel table, no last line); a
+compiled phase then runs its eager counterpart itself.
 """
 
 import contextlib
@@ -183,6 +205,9 @@ import warnings
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
+# the eager runs' lines that the compiled phases (21-24) compare with,
+# filled by the phases that run them
+EAGER = {}
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}  # outside tensor cores
 PEAK_BF16_FLOPS = 989e12    # dense bf16 on the tensor cores
 TOL = {"float32": 1e-5, "float64": 1e-12}
@@ -711,11 +736,14 @@ def count_applies(op):
 
 
 def run_solve(torch, rt, spmm, label, side, dtype, opts, rounded_inputs,
-              mesh=None):
+              mesh=None, compiled=False):
     """Build the bench problem (DIA Laplacian, M = diag(U[0.5, 1.5]), B
     (n, 8) U[0, 1) from default_rng(0)) and solve it through the public
     entry points (on ``mesh`` when given: ``LyapunovSolver(mesh=...)``);
-    counts reset just before the solve, read just after."""
+    counts reset just before the solve, read just after.  ``compiled``:
+    ``solve(compiled=True)``, the line then carries the engine's costs
+    (``compiled_stats``) and A's applies are not wrapped (the engine
+    clones the operator)."""
     from rails_tpu_torch.models.problems import laplacian2_sparse
 
     n = side * side
@@ -730,7 +758,7 @@ def run_solve(torch, rt, spmm, label, side, dtype, opts, rounded_inputs,
                                is_symmetric=True)
     mop = rt.DiagonalOperator(torch.from_numpy(md).to("cuda", dtype))
     solver = rt.LyapunovSolver(aop, b, mop, dtype=dtype, mesh=mesh, **opts)
-    applies = count_applies(solver.A)
+    applies = [None] if compiled else count_applies(solver.A)
     walls = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -738,7 +766,7 @@ def run_solve(torch, rt, spmm, label, side, dtype, opts, rounded_inputs,
     spmm.dia_spmm_halo.launches = 0
     t0 = time.perf_counter()
     v, t, info = solver.solve(
-        progress=lambda it, wall, res: walls.append(wall))
+        compiled=compiled, progress=lambda it, wall, res: walls.append(wall))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = spmm.dia_spmm.launches
@@ -754,14 +782,22 @@ def run_solve(torch, rt, spmm, label, side, dtype, opts, rounded_inputs,
            "dia_spmm_launches": launches, "mvps": info.mvps,
            "res_true_f64": res_true, "tol": opts["tol"],
            "operator": type(solver.A).__name__, "a_applies": applies[0],
-           "dia_spmm_halo_launches": halo_launches}
+           "dia_spmm_halo_launches": halo_launches, "compiled": compiled}
+    if compiled:
+        out.update(compiled_stats(info))
     if not info.converged:
         raise AssertionError(f"{label} did not converge: {out}")
     if res_true > 2 * opts["tol"]:
         raise AssertionError(f"{label} true residual above 2 tol: {out}")
     if mesh is None and launches <= 0:
         raise AssertionError(f"{label} never launched dia_spmm: {out}")
-    if mesh is not None and (
+    if mesh is not None and compiled and (
+            out["operator"] != "HaloDiaOperator" or launches != 0
+            or halo_launches <= 0 or halo_launches % mesh.size):
+        raise AssertionError(f"{label}: the mesh's A applies did not go "
+                             f"through {mesh.size} halo-kernel launches "
+                             f"each and no DIA-kernel launch: {out}")
+    if mesh is not None and not compiled and (
             out["operator"] != "HaloDiaOperator" or launches != 0
             or applies[0] <= 0 or halo_launches != mesh.size * applies[0]):
         raise AssertionError(f"{label}: the mesh's A applies did not go "
@@ -907,7 +943,7 @@ def run_refined_acc(torch, rt, spmm):
     return out
 
 
-def run_refined_scale(torch, rt, spmm, refine_mod):
+def run_refined_scale(torch, rt, spmm, refine_mod, compiled=False):
     """bench.py::phase_scale (:782-810) at its real size: the side-256
     Laplacian (n = 65536) in DIA, M = diag(U[0.5, 1.5]), B (n, 8) float32,
     solve_refined with compensated reductions to tol 1e-4.  It must
@@ -952,7 +988,8 @@ def run_refined_scale(torch, rt, spmm, refine_mod):
         v, t, info = rt.solve_refined(
             aop, b32, mop, tol=tol, stage_tol=5e-3, dtype=torch.float32,
             maxit=1500, expand=8, restart_size=160, reduced_size=80,
-            timevec_chunk=50, precision="compensated", progress=progress)
+            timevec_chunk=50, precision="compensated", progress=progress,
+            compiled=compiled)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -969,7 +1006,10 @@ def run_refined_scale(torch, rt, spmm, refine_mod):
            "stage_solve_walls_s": stage_walls,
            "residual_factor_walls_s": factor_s,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "dia_spmm_launches": launches, "res_true_f64": res_true}
+           "dia_spmm_launches": launches, "res_true_f64": res_true,
+           "compiled": compiled}
+    if compiled:
+        out["stage_engines"] = [compiled_stats(st) for st in info.stages]
     if not out["converged"]:
         raise AssertionError(f"refined_scale did not converge: {out}")
     if res_true > 2 * tol:
@@ -987,7 +1027,7 @@ CONT_SIDE = 128          # n = 16384, four times the JAX bench's n
 CONT_WIDE_PASSES = 6
 
 
-def run_continuation_wide(torch, rt, em, wm):
+def run_continuation_wide(torch, rt, em, wm, compiled=False):
     """bench.py::phase_continuation (:594-664) at side 128: the Jacobians
     theta = 0, 0.05, 0.1 in ELL with the dense-window payload, float32,
     M and B as at :617-618, through ContinuationSolver with compensated
@@ -1024,10 +1064,15 @@ def run_continuation_wide(torch, rt, em, wm):
         w0, e0 = wm.wide_spmm.launches, em.ell_spmm.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        v, t, info = cont.step(aop)
+        v, t, info = cont.step(aop, compiled=compiled)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        steps.append({
+        if compiled:
+            steps.append(dict(compiled_stats(info),
+                              engine_cache_size=len(cont._engine_cache)))
+        else:
+            steps.append({})
+        steps[-1].update({
             "theta": theta, "k0": k0, "iters": info.iter,
             "converged": bool(info.converged), "res_est": float(info.res),
             "rank": int(v.shape[1]), "wall_s": wall,
@@ -1045,7 +1090,8 @@ def run_continuation_wide(torch, rt, em, wm):
            "warm_wall_mean_s": sum(s["wall_s"] for s in warm) / len(warm),
            "wide_spmm_launches": wm.wide_spmm.launches,
            "ell_spmm_launches": em.ell_spmm.launches,
-           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "compiled": compiled}
     bad = [s for s in steps
            if not s["converged"] or s["res_true_f64"] > 2 * tol]
     if bad:
@@ -1204,6 +1250,7 @@ def run_earlier_phases(torch, rt, spmm, em, smi, gen):
     out32.update({"bench_r05_iters": 120, "phase_wall_s":
                   time.perf_counter() - t0})
     emit(out32)
+    EAGER["solve_f32"] = out32
 
     # ---- 6. solve f64, n=65536 (phase_scale geometry, plain f64)
     t0 = time.perf_counter()
@@ -1213,6 +1260,7 @@ def run_earlier_phases(torch, rt, spmm, em, smi, gen):
     out64.update({"jax_cpu_f64_iters": 742,
                   "phase_wall_s": time.perf_counter() - t0})
     emit(out64)
+    EAGER["solve_f64"] = out64
 
     # where the time goes: the first 200 iterations again, with the
     # solver's timer on (it synchronises the card at each scope's ends)
@@ -1350,6 +1398,7 @@ def run_wide_phases(torch, rt, spmm, em, wm, refine_mod, smi, gen, only):
         out = run_refined_scale(torch, rt, spmm, refine_mod)
         out["phase_wall_s"] = time.perf_counter() - t0
         emit(out)
+        EAGER["refined_scale"] = out
     launches = None
     if want("continuation_wide"):
         t0 = time.perf_counter()
@@ -1357,6 +1406,7 @@ def run_wide_phases(torch, rt, spmm, em, wm, refine_mod, smi, gen, only):
         out["phase_wall_s"] = time.perf_counter() - t0
         launches = out["wide_spmm_launches"]
         emit(out)
+        EAGER["continuation_wide"] = out
     return launches, wide_err, wide_t
 
 
@@ -1705,6 +1755,7 @@ def run_mesh_phases(torch, rt, spmm, em, smi, gen, only, solve_f64):
             raise AssertionError(f"mesh_solve iterations differ from "
                                  f"solve_f64's by > 1%: {out}")
         emit(out)
+        EAGER["mesh_solve"] = out
 
     # ---- 16. the ELL halo path in a solve
     if want("mesh_ell"):
@@ -1728,6 +1779,337 @@ def run_mesh_phases(torch, rt, spmm, em, smi, gen, only, solve_f64):
                     "phase_wall_s": time.perf_counter() - t0})
         emit(out)
     return launches, halo_err, halo_t
+
+
+@contextlib.contextmanager
+def full_capacity():
+    """The eager solver with its state grown to the full capacity cap_kb
+    before the first iteration, as ``solve(compiled=True)`` holds it (the
+    eager path grows on a ladder, e.g. 144 -> 184 columns in solve_f64):
+    the same iteration at the same shapes, so the compiled run can be
+    held to it iteration for iteration."""
+    from rails_tpu_torch.core.solver import LyapunovSolver
+
+    init = LyapunovSolver._init_state
+
+    def grown(self, m, *args, **kwargs):
+        st, ctx = init(self, m, *args, **kwargs)
+        self._grow_state(st, ctx.cap_kb)
+        ctx.set_kb(ctx.cap_kb, m)
+        return st, ctx
+
+    LyapunovSolver._init_state = grown
+    try:
+        yield
+    finally:
+        LyapunovSolver._init_state = init
+
+
+def compiled_stats(info):
+    """What a ``solve(compiled=True)`` cost the host, per iteration: graph
+    segments replayed, host reads (eigh host steps, the schur route's
+    round trip, the restart-or-expand switch), our kernels' launches;
+    the capture seconds and the recorded program's shape."""
+    e = info.engine
+    return {"engine_iterations": e["iterations"],
+            "segments_per_iter": e["segments_per_iter"],
+            "host_reads_per_iter": e["host_reads_per_iter"],
+            "launches_per_iter": e["launches_per_iter"],
+            "capture_s": e["capture_s"], "captured": e["captured"],
+            "program": e["program"]}
+
+
+def compare_eager(label, eager, comp, res_tol, res_key="res_true_f64",
+                  ladder=None):
+    """One case of a compiled phase: the eager run's and the compiled
+    run's lines side by side; raises unless both converged, the compiled
+    true residual is within ``res_tol`` and the iterations agree within
+    1%.  ``eager`` is the eager run at full capacity where one was made;
+    ``ladder`` then is the plain eager run (its capacity on the ladder),
+    reported beside them."""
+    case = {"case": label,
+            "iters": {"eager": eager["iters"], "compiled": comp["iters"]},
+            "status": {"eager": eager.get("status", 0),
+                       "compiled": comp.get("status", 0)},
+            "res_true_f64": {"eager": eager[res_key],
+                             "compiled": comp[res_key]},
+            "wall_s": {"eager": eager["wall_s"], "compiled": comp["wall_s"]},
+            "s_per_iter": {"eager": eager["wall_s"] / eager["iters"],
+                           "compiled": comp["wall_s"] / comp["iters"]},
+            "max_memory_allocated": {
+                "eager": eager.get("max_memory_allocated"),
+                "compiled": comp.get("max_memory_allocated")}}
+    case["speedup"] = case["wall_s"]["eager"] / case["wall_s"]["compiled"]
+    for k in ("segments_per_iter", "host_reads_per_iter",
+              "launches_per_iter", "capture_s", "program"):
+        if k in comp:
+            case[k] = comp[k]
+    if ladder is not None:
+        case["eager_ladder"] = {k: ladder.get(k) for k in (
+            "iters", "status", "wall_s", res_key, "max_memory_allocated")}
+        case["ladder_iters_within_1pct"] = \
+            abs(comp["iters"] - ladder["iters"]) <= 0.01 * ladder["iters"]
+        case["speedup_over_ladder"] = ladder["wall_s"] / comp["wall_s"]
+    ei, ci = eager["iters"], comp["iters"]
+    case["iters_within_1pct"] = abs(ci - ei) <= 0.01 * ei
+    if not comp.get("converged", True) or comp[res_key] > res_tol:
+        raise AssertionError(f"compiled {label} missed its residual: {case}")
+    if not case["iters_within_1pct"]:
+        raise AssertionError(f"compiled {label}: iterations differ from the "
+                             f"eager run's by more than 1%: {case}")
+    return case
+
+
+def graph_check(torch, spmm, em, gen):
+    """One DIA apply (solve_f64's shape) and one ELL apply (the
+    continuation shape, f32, s = 8) captured into a CUDA graph and
+    replayed: equal to the eager launch, within the kernels' tolerance
+    of the plain versions, and one launch counted per replay by the
+    engine's bookkeeping (the wrapper counts once at capture)."""
+    from rails_tpu_torch.sparse.formats import sparse_from_scipy
+
+    rows = []
+    dia = random_dia(torch, 65536, 65536, (-256, -1, 0, 1, 256),
+                     torch.float64, gen)
+    ell = sparse_from_scipy(continuation_jacobian(CONT_SIDE, 0.05),
+                            fmt="ell", dtype=torch.float32).fwd
+    for name, fn, plain, payload, x in (
+            ("dia_spmm", spmm.dia_spmm, spmm.dia_spmm_reference, dia,
+             random_x(torch, 65536, 8, torch.float64, gen)),
+            ("ell_spmm", em.ell_spmm, em.ell_spmm_reference, ell,
+             random_x(torch, ell.shape[1], 8, torch.float32, gen))):
+        eager = fn(payload, x)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn(payload, x)                  # warm-up on the capture stream
+        torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        before = fn.launches
+        with torch.cuda.graph(g, stream=stream):
+            y = fn(payload, x)
+        counted_at_capture = fn.launches - before
+        for _ in range(3):
+            g.replay()
+        torch.cuda.synchronize()
+        ref = plain(payload, x)
+        dt = str(x.dtype).replace("torch.", "")
+        row = {"kernel": name, "dtype": dt, "s": 8,
+               "replay_equals_eager": bool(torch.equal(y, eager)),
+               "max_abs_err_vs_plain": (y - ref).abs().max().item(),
+               "max_abs_y": ref.abs().max().item(),
+               "counted_at_capture": counted_at_capture}
+        rows.append(row)
+        if not row["replay_equals_eager"] or row["max_abs_err_vs_plain"] \
+                > TOL[dt] * row["max_abs_y"]:
+            raise AssertionError(f"graph replay of {name} disagrees: {row}")
+    return rows
+
+
+def dia_branches_in_graph(torch, spmm, gen, reps=200):
+    """Kernel #1 at solve_f64's shape (m = 65,536, s = 8, f64; L2-resident,
+    as in the solver), both branches: ms per launch back to back from
+    the host and replayed from one CUDA graph of ``reps`` launches
+    (PERF.md section 7: does a graph keep the staged branch's ring warm
+    enough to win at 2 tiles per block?)."""
+    offsets = (-256, -1, 0, 1, 256)
+    dia = random_dia(torch, 65536, 65536, offsets, torch.float64, gen)
+    x = random_x(torch, 65536, 8, torch.float64, gen)
+    auto = spmm.launch_plan(dia, x)
+    out = {"m": 65536, "s": 8, "dtype": "float64",
+           "auto": "staged" if auto.staged else "direct"}
+    for branch in ("direct", "staged"):
+        plan = spmm.dia_plan(offsets, 65536, 65536, 8, 8, auto.vec,
+                             aligned=True, sms=spmm._sm_count(x.device),
+                             branch=branch)
+
+        def launches():
+            for _ in range(reps):
+                spmm.dia_spmm(dia, x, plan=plan)
+
+        launches()
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        launches()
+        e1.record()
+        torch.cuda.synchronize()
+        eager_ms = e0.elapsed_time(e1) / reps
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=stream):
+            launches()
+        g.replay()
+        torch.cuda.synchronize()
+        e0.record()
+        g.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        out[branch] = {"eager_ms": eager_ms,
+                       "graph_ms": e0.elapsed_time(e1) / reps,
+                       "staged": plan.staged, "why": plan.why,
+                       "tiles": plan.tiles, "grid": plan.grid}
+    return out
+
+
+# the calls the recorded iteration puts inside its graph segments
+CAPTURED_CALLS = ("cholesky_ex", "solve_ex", "inv_ex", "slogdet",
+                  "solve_triangular", "argsort", "randn_registered")
+
+
+def capture_audit():
+    """``python3 -m rails_tpu_torch.capture_audit`` (one process per
+    call): which calls capture, what eigh and a restart rotation cost.
+    Raises if a call the recorded iteration captures does not capture,
+    or if the registered generator repeats its draws across replays."""
+    proc = subprocess.run([sys.executable, "-m",
+                           "rails_tpu_torch.capture_audit"],
+                          capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode or not lines:
+        raise RuntimeError(f"capture_audit failed: {proc.stdout[-2000:]}"
+                           f"{proc.stderr[-2000:]}")
+    out = json.loads(lines[-1])
+    rows = {r["call"]: r for r in out["calls"]}
+    bad = [c for c in CAPTURED_CALLS if not rows[c].get("captured")]
+    if bad or not rows["randn_registered"].get("replays_draw_anew"):
+        raise AssertionError(f"calls of the recorded iteration do not "
+                             f"capture: {bad}: {out}")
+    return out
+
+
+def run_compiled_phases(torch, rt, spmm, em, wm, refine_mod, gen, only,
+                        eager):
+    """Phases 21-24: ``solve(compiled=True)`` on the card, each beside
+    the eager run of the same problem (``eager``: the earlier phases'
+    lines; a phase runs its own eager counterpart when that phase was
+    skipped), those not in ``only`` skipped (None: all)."""
+    def want(name):
+        return only is None or name in only
+
+    f32, f64 = torch.float32, torch.float64
+    opts32 = dict(tol=1e-4, expand=6, restart_size=120, reduced_size=60,
+                  maxit=200)
+
+    # ---- 21. compiled_solve: solve_f64's and solve_f32's problems
+    compiled_f64 = None
+    if want("compiled_solve") or want("compiled_mesh"):
+        t0 = time.perf_counter()
+        cases = []
+        for label, side, dtype, opts, rounded in (
+                ("solve_f64", 256, f64, OPTS64, True),
+                ("solve_f32", 64, f32, opts32, False)):
+            if not want("compiled_solve") and label != "solve_f64":
+                continue
+            ladder = eager.get(label)
+            if ladder is None:
+                ladder, _ = run_solve(torch, rt, spmm, label, side, dtype,
+                                      opts, rounded)
+            with full_capacity():
+                full, _ = run_solve(torch, rt, spmm, f"{label}_full_capacity",
+                                    side, dtype, opts, rounded)
+            comp, _ = run_solve(torch, rt, spmm, f"compiled_{label}", side,
+                                dtype, opts, rounded, compiled=True)
+            case = compare_eager(label, full, comp, 2 * opts["tol"],
+                                 ladder=ladder)
+            case["dia_spmm_launches"] = {"eager": full["dia_spmm_launches"],
+                                         "compiled":
+                                             comp["dia_spmm_launches"]}
+            cases.append(case)
+            if label == "solve_f64":
+                compiled_f64 = (full, comp)
+    if want("compiled_solve"):
+        emit({"phase": "compiled_solve", "cases": cases,
+              "capture_audit": capture_audit(),
+              "graph_check": graph_check(torch, spmm, em, gen),
+              "dia_branches_in_graph": dia_branches_in_graph(torch, spmm,
+                                                             gen),
+              "wall_s": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+
+    # ---- 22. compiled_mesh: mesh_solve through the recorded iteration
+    if want("compiled_mesh"):
+        t0 = time.perf_counter()
+        mesh = rt.make_mesh(devices=["cuda:0"] * MESH_ND)
+        ladder = eager.get("mesh_solve")
+        if ladder is None:
+            ladder, _ = run_solve(torch, rt, spmm, "mesh_solve", 256, f64,
+                                  OPTS64, True, mesh=mesh)
+        comp, _ = run_solve(torch, rt, spmm, "compiled_mesh_solve", 256,
+                            f64, OPTS64, True, mesh=mesh, compiled=True)
+        # held to the unsharded eager run at full capacity (the mesh
+        # computes the unsharded arithmetic bit for bit, PR 4)
+        full, comp_f64 = compiled_f64
+        case = compare_eager("mesh_solve", full, comp, 2 * OPTS64["tol"],
+                             ladder=ladder)
+        case.update({
+            "compiled_solve_f64_iters": comp_f64["iters"],
+            "iters_equal_compiled_solve_f64":
+                comp["iters"] == comp_f64["iters"],
+            "dia_spmm_halo_launches": {
+                "eager": ladder["dia_spmm_halo_launches"],
+                "compiled": comp["dia_spmm_halo_launches"]}})
+        emit({"phase": "compiled_mesh", "shards": MESH_ND, "cases": [case],
+              "wall_s": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+
+    # ---- 23. compiled_refined: refined_scale, every stage recorded
+    if want("compiled_refined"):
+        t0 = time.perf_counter()
+        ref = eager.get("refined_scale")
+        if ref is None:
+            ref = run_refined_scale(torch, rt, spmm, refine_mod)
+        comp = run_refined_scale(torch, rt, spmm, refine_mod, compiled=True)
+        case = compare_eager("refined_scale", ref, comp, 2 * comp["tol"])
+        case.update({"stage_iters": {"eager": ref["stage_iters"],
+                                     "compiled": comp["stage_iters"]},
+                     "stage_engines": comp["stage_engines"],
+                     "dia_spmm_launches": {
+                         "eager": ref["dia_spmm_launches"],
+                         "compiled": comp["dia_spmm_launches"]}})
+        emit({"phase": "compiled_refined", "cases": [case],
+              "wall_s": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+
+    # ---- 24. compiled_continuation: one engine cache across the steps
+    if want("compiled_continuation"):
+        t0 = time.perf_counter()
+        ref = eager.get("continuation_wide")
+        if ref is None:
+            ref = run_continuation_wide(torch, rt, em, wm)
+        comp = run_continuation_wide(torch, rt, em, wm, compiled=True)
+        steps = []
+        for r, c in zip(ref["steps"], comp["steps"]):
+            step = {k: c[k] for k in (
+                "theta", "k0", "segments_per_iter", "host_reads_per_iter",
+                "launches_per_iter", "capture_s", "captured",
+                "engine_cache_size", "wide_spmm_launches",
+                "ell_spmm_launches")}
+            step.update({"iters": {"eager": r["iters"],
+                                   "compiled": c["iters"]},
+                         "converged": {"eager": r["converged"],
+                                       "compiled": c["converged"]},
+                         "res_true_f64": {"eager": r["res_true_f64"],
+                                          "compiled": c["res_true_f64"]},
+                         "wall_s": {"eager": r["wall_s"],
+                                    "compiled": c["wall_s"]}})
+            steps.append(step)
+        sizes = [st["engine_cache_size"] for st in steps]
+        out = {"phase": "compiled_continuation", "steps": steps,
+               "engine_cache_sizes": sizes,
+               "warm_step_recaptured": any(st["captured"]
+                                           for st in steps[2:]),
+               "max_memory_allocated": {
+                   "eager": ref["max_memory_allocated"],
+                   "compiled": comp["max_memory_allocated"]},
+               "wall_s": time.perf_counter() - t0}
+        if sizes != [1, 2, 2] or out["warm_step_recaptured"]:
+            raise AssertionError(f"compiled_continuation: the third step "
+                                 f"did not replay the second's engine: "
+                                 f"{out}")
+        emit(out)
 
 
 def wall_ms(torch, fn, reps):
@@ -2142,7 +2524,8 @@ def run_host_phases(torch, rt, spmm, em, gen, only, cli):
 NEW_PHASES = ("compare_wide", "timing_wide", "refined_acc", "refined_scale",
               "continuation_wide", "compare_halo", "timing_halo",
               "mesh_solve", "mesh_ell", "mesh_schur", "schur_lapack",
-              "schur_native", "hub")
+              "schur_native", "hub", "compiled_solve", "compiled_mesh",
+              "compiled_refined", "compiled_continuation")
 
 
 def parse_only(argv):
@@ -2209,6 +2592,8 @@ def main():
     hub_launches = run_host_phases(
         torch, rt, spmm, em, gen, only,
         None if earlier is None else earlier["cli_schur"])
+    run_compiled_phases(torch, rt, spmm, em, wm, refine_mod, gen, only,
+                        EAGER)
     if only is not None:
         return
 

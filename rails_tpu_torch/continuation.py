@@ -39,16 +39,23 @@ __all__ = ["ContinuationSolver"]
 
 class ContinuationSolver:
     """``ContinuationSolver(b, m=None, options=None, *, device=None,
-    draws=None, **opt_kwargs)``; every step runs a ``LyapunovSolver`` on
-    ``device`` (default ``cuda``) with these options and ``draws`` hook.
+    draws=None, engine_cache=None, **opt_kwargs)``; every step runs a
+    ``LyapunovSolver`` on ``device`` (default ``cuda``) with these
+    options and ``draws`` hook.
 
-    The JAX package shares one engine cache (compiled programs) across
-    steps; the port runs eagerly and has no engine cache, so that
-    argument has no counterpart.  ``mesh``: every step's solver runs
+    All steps share one engine cache (``engine_cache``, a new dict by
+    default), as in the JAX package: a ``step(..., compiled=True)``
+    whose operators have the structure of an earlier step's (format,
+    shapes, DIA offsets, ELL tile windows) replays that step's recorded
+    iteration against the new Jacobian, with no new capture.  The cold
+    step and the warm steps differ in ``restart_upon_start``, so they
+    hold one engine each.  ``mesh``: every step's solver runs
     row-sharded on it (``LyapunovSolver(mesh=...)``)."""
 
     def __init__(self, b, m=None, options: Optional[SolverOptions] = None,
-                 mesh=None, *, device=None, draws=None, **opt_kwargs):
+                 mesh=None, *, device=None, draws=None,
+                 engine_cache: Optional[dict] = None, **opt_kwargs):
+        self._engine_cache = {} if engine_cache is None else engine_cache
         self.mesh = mesh
         self.b = b
         self.m = m
@@ -89,7 +96,8 @@ class ContinuationSolver:
         solver = LyapunovSolver(a, b if b is not None else self.b,
                                 m if m is not None else self.m,
                                 options=opts, mesh=self.mesh,
-                                device=self.device, draws=self.draws)
+                                device=self.device, draws=self.draws,
+                                engine_cache=self._engine_cache)
         v, t, info = solver.solve(compiled=compiled)
         self._prev_space = self._truncate_basis(
             v, t, self.options.reduced_size)

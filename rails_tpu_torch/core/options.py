@@ -2,8 +2,10 @@
 (src/LyapunovSolver.hpp:72-98) and the MATLAB opts struct
 (matlab/RAILSsolver.m:93-254), with the JAX package's own knobs.
 A copy of the JAX package's ``core/options.py``; the port imports nothing
-of that package.  ``compiled=True`` (CUDA graphs) is an option the port
-does not run yet: the solver raises ``NotImplementedError`` for it.
+of that package.  ``timevec_chunk`` sets, for ``solve(compiled=True)``,
+how many iterations run between two host reads of the state: replays of
+the recorded iteration on the card (``core/engine.py``), eager
+iterations on the CPU.
 
 Validation rules mirror the reference's error ids
 (RAILSsolver:InvalidOption etc.).

@@ -14,12 +14,18 @@ masked state:
   newest block), the projected dense solve, the residual Lanczos, then a
   restart or an orthonormal append.
 
-PyTorch runs eagerly, so the JAX package's ``lax.cond``/``scan`` become
-Python control flow and its host loop is the only loop: the control
-scalars (k, the iteration counters, the convergence flags) are Python
-values, and each iteration reads the residual estimate back once.
-``compiled=True`` (the JAX package's single ``while_loop``; CUDA graphs
-here) is not ported yet and raises.
+Two paths run the iteration.  The eager path (``compiled=False``) is the
+JAX package's host loop: the ``lax.cond``/``scan`` become Python control
+flow, the control scalars (k, the iteration counters, the convergence
+flags) are Python values, and each iteration reads the residual
+estimate back once; its capacity grows on the ladder.
+``compiled=True`` is the JAX package's ``while_loop`` engine: the state
+at full capacity with its control scalars on the device, one iteration
+(``_build_iterate``) written on it in place, recorded into CUDA graphs
+on the card and replayed, the host reading the state once per chunk of
+``timevec_chunk`` iterations (``core/engine.py`` says which calls stay
+on the host between graph segments).  Engines are cached under
+``_engine_key`` in ``engine_cache``.
 
 ``precision='compensated'`` runs every m-length reduction through the
 error-free transforms of ``utils/compensated.py``, as the JAX package
@@ -36,7 +42,10 @@ the numbers ``jax.random`` gave the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
+import functools
 import time
 import warnings
 from typing import Callable, Optional, Tuple
@@ -73,13 +82,13 @@ def _dus(buf: torch.Tensor, blk: torch.Tensor, r: int, c: int) -> None:
     buf[r:r + blk.shape[0], c:c + blk.shape[1]] = blk
 
 
-def _eigh_sign_fixed(h: torch.Tensor):
+def _eigh_sign_fixed(h: torch.Tensor, calls=dense_lyap.EAGER_CALLS):
     """``torch.linalg.eigh`` with each eigenvector's sign fixed so that
     its entry of largest magnitude (the first, on a tie) is positive.
     LAPACK leaves the sign open and the LAPACKs differ (MKL, cuSOLVER,
     the one jaxlib uses); the residual Lanczos's warm start depends on
     it, so the port fixes it to give one answer on every device."""
-    w, v = torch.linalg.eigh(h)
+    w, v = calls.eigh(h)
     idx = torch.argmax(torch.abs(v), dim=0)
     sgn = torch.sign(v.gather(0, idx[None, :]))
     return w, v * torch.where(sgn == 0, torch.ones_like(sgn), sgn)
@@ -123,6 +132,9 @@ class SolveInfo:
     timevec: np.ndarray
     mvps: int
     restart_data: Optional[dict] = None
+    # compiled=True: what the iterations cost the host
+    # (core/engine.py::EngineStats), else None
+    engine: Optional[dict] = None
 
     @property
     def converged(self) -> bool:
@@ -147,13 +159,24 @@ class LyapunovSolver:
     ``spmm`` strategy, so a DIA, ELL or HYB operator applies through the
     explicit-halo operators; the solve runs on the mesh's device
     (``device``, when given, must be that device).
+    ``engine_cache``: optional dict shared between solvers (the
+    continuation driver passes one across its steps).  ``compiled=True``
+    keeps its recorded iterations there under ``_engine_key``: every
+    option and structural fact the recording closes over, the operators'
+    structure (``core/engine.py::structure``) and the nullspace's shape.
+    Values - the operator payloads, B, ``b_sign``, ``r0sq``, the
+    nullspace - are copied into the engine's own buffers at each solve,
+    so a solver with the same key replays the recording against its own
+    values without capturing again.
     """
 
     def __init__(self, a, b, m=None, options: Optional[SolverOptions] = None,
                  mesh=None, spmm: str = "auto", *, device=None,
-                 draws: Optional[Draws] = None, b_sign=None, **opt_kwargs):
+                 draws: Optional[Draws] = None, b_sign=None,
+                 engine_cache: Optional[dict] = None, **opt_kwargs):
         self.options = options or SolverOptions(**opt_kwargs)
         opt = self.options
+        self._engine_cache = {} if engine_cache is None else engine_cache
         self.mesh = mesh
         if mesh is not None:
             from rails_tpu_torch.parallel.mesh import canonical_device
@@ -306,11 +329,36 @@ class LyapunovSolver:
         """Run the iteration.  Returns (V, T, SolveInfo).
 
         ``progress``: optional callable ``(iter, wall_s, res)`` called
-        after every iteration."""
+        after every iteration, or with ``compiled=True`` after every
+        chunk of ``timevec_chunk`` iterations.
+
+        ``compiled=True``: the iteration with its control state on the
+        device, at the full capacity from the start (the JAX package's
+        ``while_loop`` engine): on the card recorded once into CUDA
+        graphs and replayed, on the CPU run eagerly; the host reads the
+        state once per chunk (``core/engine.py``)."""
         if compiled:
-            raise NotImplementedError(
-                "compiled=True (one captured graph for the whole loop) is "
-                "not ported yet: ROADMAP, CUDA graphs")
+            v, t, info = self._solve_compiled(progress)
+        else:
+            v, t, info = self._solve_eager(progress)
+        opt = self.options
+        if opt.verbosity > 0:
+            outcome = "converged" if info.status == 0 else "did not converge"
+            print(f"The Lyapunov solver {outcome} in {info.iter} iterations "
+                  f"with a final relative residual of {info.res:e}. "
+                  f"The size of the space used for the solution is "
+                  f"{v.shape[1]}")
+        if info.status == -1 and opt.projection_major == 1 \
+                and opt.projection_minor == 0:
+            warnings.warn(
+                "Convergence has not been achieved with "
+                "projection_method = 1. It is advised to set "
+                "projection_method to a different value. For instance "
+                "projection_method = 1.2.",
+                ProjectionMethodWarning)  # RAILSsolver.m:438-452
+        return v, t, info
+
+    def _solve_eager(self, progress):
         opt = self.options
         m = self.A.shape[0]
         with full_precision():
@@ -351,20 +399,314 @@ class LyapunovSolver:
             mvps=st.mvps,
             restart_data={"V": v, "AV": st.AV[:, :k],
                           "VAV": st.VAV[:k, :k]})
-        if opt.verbosity > 0:
-            outcome = "converged" if info.status == 0 else "did not converge"
-            print(f"The Lyapunov solver {outcome} in {info.iter} iterations "
-                  f"with a final relative residual of {info.res:e}. "
-                  f"The size of the space used for the solution is {k}")
-        if info.status == -1 and opt.projection_major == 1 \
-                and opt.projection_minor == 0:
-            warnings.warn(
-                "Convergence has not been achieved with "
-                "projection_method = 1. It is advised to set "
-                "projection_method to a different value. For instance "
-                "projection_method = 1.2.",
-                ProjectionMethodWarning)  # RAILSsolver.m:438-452
         return v, t, info
+
+    # ------------------------------------------------------------------
+    # compiled=True: the recorded iteration (core/engine.py)
+    # ------------------------------------------------------------------
+    def _engine_key(self, kb: int, ctx, pins: list):
+        """Cache key of an engine: every option and static the recorded
+        iteration closes over (the JAX package's list,
+        rails_tpu/core/solver.py:318-338), and what that list misses:
+        dtype and device, the nullspace's shape (the JAX key records
+        only whether there is one), b_sign's shape, the timevec chunk
+        (the draws buffer's rows) and whether a draws hook fills it, the
+        mesh's shard count, and the operators' structure - format,
+        shapes, DIA offsets, ELL tile windows, the wide payload's w,
+        tags (``core/engine.py::structure``).  Objects known only by
+        identity (``inv_a``, a user's callable) go to ``pins``, which
+        the engine keeps alive."""
+        from rails_tpu_torch.core.engine import structure
+
+        o = self.options
+        if o.inv_a is not None:
+            pins.append(o.inv_a)
+        return (kb, self.A.shape[0], self._p(), str(self.dtype),
+                str(self.device), o.maxit, o.tol, o.expand,
+                o.expansion_doubles, o.effective_lanczos,
+                o.lanczos_tolerance, o.lanczos_reorth, o.restart_size,
+                o.reduced_size, o.restart_iterations,
+                o.effective_restart_tolerance, o.restart_tolerance_mode,
+                o.restart_upon_start, o.restart_upon_convergence,
+                o.fast_orthogonalization, o.ortho, o.ortho_drop_tol,
+                o.precision, o.projected_solver, o.projection_major,
+                o.projection_minor, o.max_space, o.timevec_chunk,
+                self.M is None, self._b_is_operator,
+                self._resolve_lyap_method(),
+                None if o.inv_a is None else id(o.inv_a),
+                None if ctx.nullspace is None
+                else tuple(ctx.nullspace.shape),
+                None if self.b_sign is None else tuple(self.b_sign.shape),
+                self.draws is None,
+                None if self.mesh is None else self.mesh.size,
+                structure(self.A, pins), structure(self.M, pins),
+                structure(self.B, pins))
+
+    def _check_capturable(self) -> None:
+        """On the card, refuse what a recorded iteration cannot hold: a
+        user ``inv_a`` that the expansion calls (a host callable) and
+        operators with host steps inside their apply (a Schur reduction
+        whose A11 solve is ``native_lu`` or ``iterative``)."""
+        if self.device.type != "cuda":
+            return
+        opt = self.options
+        if opt.inv_a is not None and opt.uses_inverse_on_expand:
+            raise InvalidOption(
+                "compiled=True on the card cannot record inv_a (a host "
+                "callable); use compiled=False (ROADMAP, Queue 3)")
+        for name, op in (("A", self.A), ("M", self.M), ("B", self.B)):
+            kind = getattr(op, "host_steps", None)
+            if kind:
+                raise InvalidOption(
+                    f"compiled=True on the card cannot record operator "
+                    f"{name}: its apply runs {kind} on the host; use "
+                    f"a11_solver='dense_lu' or compiled=False (ROADMAP, "
+                    f"Queue 3)")
+
+    def _engine_for(self, st, ctx):
+        """The cached engine for this solve's key, built at first use."""
+        from rails_tpu_torch.core.engine import (
+            DeviceState, Engine, clone_tree)
+
+        opt = self.options
+        pins = []
+        key = self._engine_key(ctx.kb, ctx, pins)
+        eng = self._engine_cache.get(key)
+        if eng is None:
+            view = copy.copy(self)
+            view._engine_cache = None
+            view.draws = None
+            view.options = dataclasses.replace(
+                opt, space=None, restart_data=None, nullspace=None)
+            view.A, view.M, view.B = (clone_tree(self.A),
+                                      clone_tree(self.M),
+                                      clone_tree(self.B))
+            view._b_array, view.b_sign = (clone_tree(self._b_array),
+                                          clone_tree(self.b_sign))
+            ectx = copy.copy(ctx)
+            ectx.gen = None
+            ectx.r0sq = ctx.r0sq.clone()
+            ectx.nullspace = clone_tree(ctx.nullspace)
+            rows = 0
+            if self.draws is not None:
+                rows = opt.timevec_chunk if opt.timevec_chunk > 0 \
+                    else opt.maxit
+            eng = Engine(view, ectx, DeviceState.like(st, opt.maxit),
+                         LyapunovSolver._build_iterate, rows, pins)
+            self._engine_cache[key] = eng
+        return eng
+
+    def _load_engine(self, eng, st, ctx) -> None:
+        """Copy this solve's values and initial state into the engine."""
+        from rails_tpu_torch.core.engine import copy_tree
+
+        view = eng.view
+        copy_tree(view.A, self.A)
+        copy_tree(view.M, self.M)
+        copy_tree(view.B, self.B)
+        copy_tree(view._b_array, self._b_array)
+        copy_tree(view.b_sign, self.b_sign)
+        copy_tree(eng.ctx.nullspace, ctx.nullspace)
+        eng.ctx.r0sq.copy_(ctx.r0sq)
+        eng.ds.load(st)
+        if ctx.gen is not None:
+            eng.gen.set_state(ctx.gen.get_state())
+
+    def _solve_compiled(self, progress):
+        from rails_tpu_torch.core.engine import (
+            CODE_DONE, EngineStats, describe)
+
+        opt = self.options
+        m = self.A.shape[0]
+        self._check_capturable()
+        with full_precision():
+            with timer("Solver", "init"):
+                st, ctx = self._init_state(m)
+                self._grow_state(st, ctx.cap_kb)
+                ctx.set_kb(ctx.cap_kb, m)
+            eng = self._engine_for(st, ctx)
+            eng.stats = EngineStats()
+            caller = torch.cuda.current_stream(self.device) \
+                if eng.cuda else None
+            if caller is not None:
+                eng.stream.wait_stream(caller)
+            stream = torch.cuda.stream(eng.stream) if eng.cuda \
+                else contextlib.nullcontext()
+            t0 = time.perf_counter()
+            marks = []
+            with timer("Solver", "compiled"), stream:
+                self._load_engine(eng, st, ctx)
+                it, done = 0, False
+                chunk = opt.timevec_chunk
+                while not done:
+                    tgt = min(it + chunk, opt.maxit) if chunk > 0 \
+                        else opt.maxit
+                    if eng.draws is not None:
+                        eng.fill_draws(self.draws, it, tgt - it,
+                                       self.dtype)
+                    for _ in range(tgt - it):
+                        if eng.step() == CODE_DONE:
+                            break
+                    it, res, done = eng.read()
+                    marks.append((it, time.perf_counter() - t0))
+                    if progress is not None:
+                        progress(it, marks[-1][1], res)
+                    done = done or it >= opt.maxit
+                ds = eng.ds
+                k, n_it, status, mvps = torch.stack(
+                    [ds.k, ds.iter, ds.status, ds.mvps]).tolist()
+                v = ds.V[:, :k].clone()
+                t = ds.T[:k, :k].clone()
+                restart_data = {"V": v, "AV": ds.AV[:, :k].clone(),
+                                "VAV": ds.VAV[:k, :k].clone()}
+                recvec = ds.recvec[:n_it].cpu().numpy()
+                resvec = ds.resvec[:n_it].cpu().numpy()[recvec]
+                res = float(ds.res)
+            if caller is not None:
+                caller.wait_stream(eng.stream)
+        xp = [0] + [mk[0] for mk in marks]
+        fp = [0.0] + [mk[1] for mk in marks]
+        timevec = np.interp(np.arange(1, n_it + 1), xp, fp)[recvec]
+        stats = eng.stats.summary()
+        stats["program"] = None if eng.program is None \
+            else describe(eng.program)
+        info = SolveInfo(res=res, iter=n_it, status=status, resvec=resvec,
+                         timevec=timevec, mvps=mvps,
+                         restart_data=restart_data, engine=stats)
+        return v, t, info
+
+    def _build_iterate(self, ctx, ds, rec, draw):
+        """One RAILS iteration on the device state ``ds``, in place - the
+        JAX package's ``_build_iterate`` (rails_tpu/core/solver.py:
+        801-1241).  ``self`` is the engine's view of the solver (its
+        operator clones); ``rec`` the recording's hooks
+        (``core/engine.py::Recorder``); ``draw()`` the Lanczos start's
+        normal draw.
+
+        - Block reads and writes at ``w_start`` and ``k`` are index
+          selects and ``index_copy_`` at tensor starts, clamped as XLA
+          clamps ``dynamic_slice``; the Gram update's writes are masked
+          by ``n_new > 0`` (after a restart the block at ``w_start`` = 0
+          is live), as the JAX package's ``lax.cond`` skips them.
+        - The decisions (done, status, restart, reduced, converged) are
+          device booleans; the iteration ends at ``rec.switch`` on a code
+          (``CODE_DONE``, ``CODE_RESTART``, ``CODE_EXPAND``), the JAX
+          package's ``lax.cond(do_restart, restart, expand)``.
+        - Every state update is a copy into a buffer of fixed address.
+        - The dense factorizations go through
+          ``dense_lyap.CaptureCalls``: the ``_ex`` forms, and eigh (and
+          on the card the schur route) as host steps."""
+        from rails_tpu_torch.core.engine import (
+            CODE_DONE, CODE_EXPAND, CODE_RESTART)
+
+        opt = self.options
+        dev = self.device
+        kb, s_slot, k_limit = ctx.kb, ctx.s_slot, ctx.k_limit
+        calls = dense_lyap.CaptureCalls(rec.host)
+        slot_ids = torch.arange(s_slot, device=dev)
+        false = torch.zeros((), dtype=torch.bool, device=dev)
+
+        def block_ids(start):
+            return torch.clamp(start, 0, kb - s_slot) + slot_ids
+
+        def put(buf, dim, ids, blk, mask):
+            buf.index_copy_(dim, ids, torch.where(
+                mask, blk, buf.index_select(dim, ids)))
+
+        def gram_update():
+            g = ds.n_new > 0
+            ids = block_ids(ds.w_start)
+            W = ds.V.index_select(1, ids)
+            AW = self.A.matmat(W)
+            put(ds.VAV, 0, ids, self._tdot(W, ds.AV), g)
+            put(ds.AV, 1, ids, AW, g)
+            put(ds.VAV, 1, ids, self._tdot(ds.V, AW), g)
+            BW = self._b_rmatmat(W)
+            WBV = BW.T @ self._sgn(ds.BV)
+            put(ds.VBV, 0, ids, WBV, g)
+            put(ds.VBV, 1, ids, WBV.T, g)
+            rows = ds.VBV.index_select(0, ids)
+            put(rows, 1, ids, BW.T @ self._sgn(BW), g)
+            ds.VBV.index_copy_(0, ids, rows)
+            put(ds.BV, 1, ids, BW, g)
+            if ctx.has_m:
+                MW = self.M.matmat(W)
+                put(ds.MV, 1, ids, MW, g)
+                if not ctx.mortho:
+                    put(ds.VMV, 0, ids, self._tdot(W, ds.MV), g)
+                    put(ds.VMV, 1, ids, self._tdot(ds.V, MW), g)
+            ds.mvps.add_(torch.where(g, ds.n_new, 0))
+
+        def restart():
+            x, keep = self._restart_rotation(ds, ctx, calls)
+            rot, congruence = self._rotators(x)
+            for buf in (ds.V, ds.AV, ds.BV) + (
+                    (ds.MV,) if ctx.has_m else ()):
+                buf.copy_(rot(buf))
+            ds.VAV.copy_(congruence(ds.VAV))
+            vbv = congruence(ds.VBV)
+            ds.VBV.copy_(0.5 * (vbv + vbv.T))
+            if ctx.has_m and not ctx.mortho:
+                ds.VMV.copy_(congruence(ds.VMV))
+            ds.k.copy_(keep.sum())
+            for x0 in (ds.w_start, ds.n_new, ds.iter_since_restart):
+                x0.zero_()
+
+        def expand(cands):
+            wacc, okv = self._compact(
+                ds, ctx, *self._expansion_block(ds, ctx, cands))
+            ds.V.index_copy_(1, block_ids(ds.k), wacc)
+            n_acc = okv.sum()
+            ds.w_start.copy_(ds.k)
+            ds.n_new.copy_(n_acc)
+            ds.k.add_(n_acc)
+
+        def iterate():
+            gram_update()
+            ds.T.copy_(self._projected_t(ds, ctx, calls, rec.host))
+            res_abs, cands, q_warm = self._lanczos(ds, ctx, draw(), calls)
+            ds.q_warm.copy_(q_warm)
+            rel = res_abs / ctx.r0sq
+            rel64 = rel.to(torch.float64)
+            it_ids = ds.iter.reshape(1)
+            record = (ds.iter_since_restart > 0) | (ds.iter == 0)
+            ds.resvec.index_copy_(0, it_ids, rel64.reshape(1))
+            ds.recvec.index_copy_(0, it_ids, record.reshape(1))
+            isr = ds.iter_since_restart + 1
+            it1 = ds.iter + 1
+            # abort on numerical blowup (status -2), as the eager path
+            blowup = ~torch.isfinite(rel64) | ~torch.isfinite(ds.T).all()
+            conv_now = (rel64 < opt.tol) & ~blowup
+            will_minimize = conv_now & ~ds.converged \
+                if opt.restart_upon_convergence else false
+            space_full = ds.k >= k_limit
+            done = (conv_now & ~will_minimize) | (it1 >= opt.maxit) \
+                | (space_full & ~will_minimize) | blowup
+            status = torch.where(blowup, -2, torch.where(conv_now, 0, -1))
+            converged = ds.converged | conv_now
+            due = false
+            if opt.restart_upon_start:
+                due = due | (ds.iter == 0)
+            if opt.restart_iterations > 0:
+                due = due | (isr >= opt.restart_iterations)
+            if opt.restart_size > 0:
+                due = due | (ds.k >= opt.restart_size)
+            if opt.restart_upon_convergence:
+                due = due | (conv_now & ~ds.reduced)
+            do_restart = ~done & due
+            ds.reduced.copy_(torch.where(do_restart, converged, ds.reduced))
+            ds.res.copy_(rel)
+            ds.converged.copy_(converged)
+            ds.iter.copy_(it1)
+            ds.iter_since_restart.copy_(isr)
+            ds.done.copy_(done)
+            ds.status.copy_(torch.where(done, status, 1))
+            code = torch.where(done, CODE_DONE, torch.where(
+                do_restart, CODE_RESTART, CODE_EXPAND))
+            rec.switch(code, [None, restart,
+                              functools.partial(expand, cands)])
+
+        return iterate
 
     # ------------------------------------------------------------------
     # helpers
@@ -574,7 +916,7 @@ class LyapunovSolver:
         with timer("Solver", "project_solve"):
             self._project_solve(st, ctx)
         with timer("Solver", "lanczos"):
-            res_abs, cands = self._lanczos(st, ctx)
+            res_abs, cands, st.q_warm = self._lanczos(st, ctx)
             rel_t = res_abs / ctx.r0sq
             rel, t_finite = torch.stack(
                 [rel_t, torch.isfinite(st.T).all().to(rel_t.dtype)]).tolist()
@@ -662,13 +1004,21 @@ class LyapunovSolver:
 
     # -------------------- projected dense solve --------------------
     def _project_solve(self, st: SolverState, ctx) -> None:
+        st.T = self._projected_t(st, ctx)
+
+    def _projected_t(self, st, ctx, calls=dense_lyap.EAGER_CALLS,
+                     host=None):
+        """The new projected solution T of ``st`` (k a Python int or a
+        0-d tensor).  ``calls``: the dense factorizations
+        (``dense_lyap.DenseCalls``); ``host``: the recording's host step,
+        which the schur route takes on the card."""
         tri = torch.linalg.solve_triangular
         active = (ctx.col_ids < st.k).to(self.dtype)
         inactive_diag = torch.diag(1.0 - active)
         if ctx.has_m and not ctx.mortho:
             vmv_i = st.VMV + inactive_diag  # identity padding
             if ctx.e_spd and ctx.lyap_method == "eigh":
-                l = torch.linalg.cholesky(0.5 * (vmv_i + vmv_i.T))
+                l = calls.cholesky(0.5 * (vmv_i + vmv_i.T))
                 at = tri(l, st.VAV, upper=False)
                 at = tri(l, at.T, upper=False).T
                 ct = tri(l, st.VBV, upper=False)
@@ -678,9 +1028,8 @@ class LyapunovSolver:
                     x = tri(l.T, y, upper=True)
                     return tri(l.T, x.T, upper=True).T
             else:
-                at = torch.linalg.solve(vmv_i, st.VAV)
-                ct = torch.linalg.solve(
-                    vmv_i, torch.linalg.solve(vmv_i, st.VBV).T).T
+                at = calls.solve(vmv_i, st.VAV)
+                ct = calls.solve(vmv_i, calls.solve(vmv_i, st.VBV).T).T
 
                 def back(y):
                     return y
@@ -694,14 +1043,20 @@ class LyapunovSolver:
         a_pad = -(torch.max(torch.sum(torch.abs(at), dim=1)) + 1.0)
         at = at + a_pad * inactive_diag
         ct = 0.5 * (ct + ct.T)
-        y = dense_lyap.lyap(at, ct, method=ctx.lyap_method)
+        if host is not None and ctx.lyap_method == "schur":
+            y = host(functools.partial(dense_lyap.lyap, method="schur"),
+                     at, ct)
+        elif calls is dense_lyap.EAGER_CALLS:
+            y = dense_lyap.lyap(at, ct, method=ctx.lyap_method)
+        else:
+            y = dense_lyap.lyap(at, ct, method=ctx.lyap_method, calls=calls)
         t_new = back(y)
         # enforce exact masking of the inactive block
         act = ctx.col_ids < st.k
         t_new = torch.where(act[:, None] & act[None, :], t_new,
                             torch.zeros((), dtype=self.dtype,
                                         device=self.device))
-        st.T = 0.5 * (t_new + t_new.T)
+        return 0.5 * (t_new + t_new.T)
 
     # -------------------- residual Lanczos --------------------
     def _resid_apply(self, st: SolverState, ctx, q):
@@ -714,10 +1069,14 @@ class LyapunovSolver:
         y = y + mv @ (st.T @ self._tdot(st.AV, q))
         return y
 
-    def _lanczos(self, st: SolverState, ctx):
+    def _lanczos(self, st, ctx, g=None, calls=dense_lyap.EAGER_CALLS):
+        """The residual Lanczos from ``st.q_warm`` and the normal draw
+        ``g`` (drawn here when None).  Returns (|top Ritz value|, the
+        s_top candidates, the next warm start)."""
         opt = self.options
         m, L, dtype, dev = st.V.shape[0], ctx.L, self.dtype, self.device
-        g = self._draw(ctx, "lanczos_normal", (m, 1))
+        if g is None:
+            g = self._draw(ctx, "lanczos_normal", (m, 1))
         g = g / torch.linalg.norm(g)
         # warm start: last iteration's top candidate plus a random
         # component guaranteeing overlap with any newly dominant direction
@@ -756,22 +1115,38 @@ class LyapunovSolver:
         alphas, betas = torch.stack(alphas), torch.stack(betas)
         h = torch.diag(alphas) + torch.diag(betas[:-1], 1) \
             + torch.diag(betas[:-1], -1)
-        evals, evecs = _eigh_sign_fixed(h)
+        evals, evecs = _eigh_sign_fixed(h, calls)
         order = torch.argsort(-torch.abs(evals), stable=True)
         evals = evals[order]
         evecs = evecs[:, order]
         cands = qbuf @ evecs[:, :ctx.s_top]
-        st.q_warm = qbuf @ evecs[:, :1]
-        return torch.abs(evals[0]), cands
+        return torch.abs(evals[0]), cands, qbuf @ evecs[:, :1]
 
     # -------------------- restart --------------------
     def _restart(self, st: SolverState, ctx) -> None:
         """Truncate the space to the dominant eigenvectors of T (C++
         compute_restart_vectors, LyapunovSolver.hpp:449-482; MATLAB
         RAILSsolver.m:455-513)."""
+        x, keep = self._restart_rotation(st, ctx)
+        rot, congruence = self._rotators(x)
+        st.V, st.AV, st.BV = rot(st.V), rot(st.AV), rot(st.BV)
+        st.VAV = congruence(st.VAV)
+        vbv = congruence(st.VBV)
+        st.VBV = 0.5 * (vbv + vbv.T)
+        if ctx.has_m:
+            st.MV = rot(st.MV)
+            if not ctx.mortho:
+                st.VMV = congruence(st.VMV)
+        st.k = int(keep.sum())
+        st.w_start, st.n_new, st.iter_since_restart = 0, 0, 0
+
+    def _restart_rotation(self, st, ctx, calls=dense_lyap.EAGER_CALLS):
+        """The restart's rotation x (columns of T's eigenvectors by
+        descending |eigenvalue|, zero where not kept; float64 for a
+        float32 solve) and the kept-column mask."""
         opt = self.options
         rtol = opt.effective_restart_tolerance
-        evals, evecs = torch.linalg.eigh(st.T)
+        evals, evecs = calls.eigh(st.T)
         aevals = torch.abs(evals)
         order = torch.argsort(-aevals, stable=True)
         aevals = aevals[order]
@@ -795,24 +1170,18 @@ class LyapunovSolver:
         # The JAX package rotates in float32 (its TPU has no fast
         # float64); at float64 the two are the same algorithm.
         wide = torch.float64 if self.dtype == torch.float32 else self.dtype
-        x = (x * keep[None, :].to(self.dtype)).to(wide)
+        return (x * keep[None, :].to(self.dtype)).to(wide), keep
 
+    def _rotators(self, x):
+        """rot(buf) = buf x and congruence(g) = x' g x, in x's dtype,
+        rounded once to the solve dtype."""
         def rot(buf):
-            return (buf.to(wide) @ x).to(self.dtype)
+            return (buf.to(x.dtype) @ x).to(self.dtype)
 
         def congruence(g):
-            return (x.T @ g.to(wide) @ x).to(self.dtype)
+            return (x.T @ g.to(x.dtype) @ x).to(self.dtype)
 
-        st.V, st.AV, st.BV = rot(st.V), rot(st.AV), rot(st.BV)
-        st.VAV = congruence(st.VAV)
-        vbv = congruence(st.VBV)
-        st.VBV = 0.5 * (vbv + vbv.T)
-        if ctx.has_m:
-            st.MV = rot(st.MV)
-            if not ctx.mortho:
-                st.VMV = congruence(st.VMV)
-        st.k = int(keep.sum())
-        st.w_start, st.n_new, st.iter_since_restart = 0, 0, 0
+        return rot, congruence
 
     # -------------------- expansion --------------------
     def _inner_prep(self, ctx, w):
@@ -827,17 +1196,22 @@ class LyapunovSolver:
     def _finish_append(self, st: SolverState, ctx, wacc, okv) -> None:
         """Capacity limit, compaction of the accepted columns to the
         front (stable), and the append at column k."""
+        wacc, okv = self._compact(st, ctx, wacc, okv)
+        n_acc = int(okv.sum())
+        _dus(st.V, wacc, 0, st.k)
+        st.w_start, st.n_new, st.k = st.k, n_acc, st.k + n_acc
+
+    def _compact(self, st, ctx, wacc, okv):
+        """The block's accepted columns within the capacity limit,
+        moved to the front in order (the rest zero), and their flags."""
         okv_i = okv.to(torch.int32)
         prior = torch.cumsum(okv_i, 0) - okv_i
         okv = okv & (st.k + prior < ctx.k_limit)
         wacc = wacc * okv[None, :].to(self.dtype)
         perm = torch.argsort((~okv).to(torch.int32), stable=True)
-        wacc = wacc[:, perm]
-        n_acc = int(okv.sum())
-        _dus(st.V, wacc, 0, st.k)
-        st.w_start, st.n_new, st.k = st.k, n_acc, st.k + n_acc
+        return wacc[:, perm], okv
 
-    def _orthonormal_append_fast(self, st, ctx, wraw) -> None:
+    def _orthonormal_block_fast(self, st, ctx, wraw):
         """Block CGS(2) against V (two (m,k)x(k,s) GEMM pairs), then the
         cheap within-block orthonormalization and drop decisions per
         column - the MATLAB fast path (RAILSsolver.m:554-563)."""
@@ -873,9 +1247,9 @@ class LyapunovSolver:
             wacc = wacc - ns @ tdot(ns, prep(ctx, wacc))
         n2 = self._col_norm(ctx, wacc)
         wacc = wacc / torch.where(n2 > 0, n2, one)[None, :]
-        self._finish_append(st, ctx, wacc, torch.stack(flags))
+        return wacc, torch.stack(flags)
 
-    def _orthonormal_append(self, st, ctx, wraw) -> None:
+    def _orthonormal_block(self, st, ctx, wraw):
         """Per-column safe path (opts.fast_orthogonalization=False):
         orthogonalize each candidate against V, the nullspace and the
         block so far, drop near-dependent ones (reference orthogonalize,
@@ -906,18 +1280,23 @@ class LyapunovSolver:
             w = torch.where(ok, w / torch.where(n1 > 0, n1, one), zero)
             wacc[:, i] = w[:, 0]
             flags.append(ok)
-        self._finish_append(st, ctx, wacc, torch.stack(flags))
+        return wacc, torch.stack(flags)
 
     def _expand(self, st: SolverState, ctx, cands) -> None:
+        self._finish_append(st, ctx, *self._expansion_block(st, ctx, cands))
+
+    def _expansion_block(self, st, ctx, cands):
+        """The candidates (with the inverse applied where the projection
+        method asks for it) orthonormalized against V, the nullspace and
+        each other: (the (m, s_slot) block, its accepted-column flags)."""
         opt = self.options
         w = cands
         if opt.inv_a is not None and opt.uses_inverse_on_expand:
             wi = opt.inv_a(w)
             w = torch.cat([w, wi], dim=1) if opt.expansion_doubles else wi
         if opt.fast_orthogonalization:
-            self._orthonormal_append_fast(st, ctx, w)
-        else:
-            self._orthonormal_append(st, ctx, w)
+            return self._orthonormal_block_fast(st, ctx, w)
+        return self._orthonormal_block(st, ctx, w)
 
 
 class _Context:

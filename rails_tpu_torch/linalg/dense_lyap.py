@@ -38,7 +38,57 @@ from rails_tpu_torch.linalg.schur_qr import complex_schur
 from rails_tpu_torch.utils.dtypes import complex_dtype_for, highest_precision
 from rails_tpu_torch.utils.host_blas import single_thread_blas
 
-__all__ = ["lyap", "lyap_residual"]
+__all__ = ["lyap", "lyap_residual", "DenseCalls", "CaptureCalls"]
+
+
+class DenseCalls:
+    """The dense factorizations of the eigh, sign and kron routes, as
+    ``lyap`` makes them: PyTorch's ``torch.linalg`` calls, which check
+    LAPACK's ``info`` on the host (a device synchronisation on the card)
+    and raise on failure."""
+
+    def eigh(self, a):
+        return torch.linalg.eigh(a)
+
+    def inv(self, a):
+        return torch.linalg.inv(a)
+
+    def slogdet(self, a):
+        return torch.linalg.slogdet(a)
+
+    def solve(self, a, b):
+        return torch.linalg.solve(a, b)
+
+    def cholesky(self, a):
+        return torch.linalg.cholesky(a)
+
+
+class CaptureCalls(DenseCalls):
+    """The same calls inside a recorded iteration (``core/engine.py``):
+    the ``_ex`` forms, which leave ``info`` on the device and capture into
+    a CUDA graph (a failed factorization gives non-finite values, which
+    the solver's blowup test turns into status -2, as in the JAX package);
+    ``eigh`` as a host step of the recording, since neither
+    ``torch.linalg.eigh`` nor cuSOLVER's syevd or syevj capture on the
+    card (``rails_tpu_torch/capture_audit.py``)."""
+
+    def __init__(self, host):
+        self.host = host
+
+    def eigh(self, a):
+        return self.host(torch.linalg.eigh, a)
+
+    def inv(self, a):
+        return torch.linalg.inv_ex(a)[0]
+
+    def solve(self, a, b):
+        return torch.linalg.solve_ex(a, b)[0]
+
+    def cholesky(self, a):
+        return torch.linalg.cholesky_ex(a)[0]
+
+
+EAGER_CALLS = DenseCalls()
 
 
 def _sym(x):
@@ -104,10 +154,10 @@ def _reduce_generalized(a, c, e, e_kind: str):
     return at, c_fwd, lambda y: y
 
 
-def _eigh_factor(a):
+def _eigh_factor(a, calls=EAGER_CALLS):
     """Factored solver for symmetric A: one eigh, then each solve is two
     matmuls and a Cauchy scaling."""
-    w, q = torch.linalg.eigh(_sym(a))
+    w, q = calls.eigh(_sym(a))
     denom = w[:, None] + w[None, :]
     # a zero denominator means a singular Lyapunov operator: those modes
     # are zeroed (pseudo-inverse); callers can check the residual
@@ -232,15 +282,15 @@ def _host_schur_factor(a, cdtype):
     return solve
 
 
-def _lyap_sign(a, c, iterations: int = 30):
+def _lyap_sign(a, c, iterations: int = 30, calls=EAGER_CALLS):
     """Newton sign iteration (Hurwitz A only), with determinant scaling:
     Z <- (s Z + (s Z)^{-1}) / 2, Q <- (s Q + (s Z)^{-T} Q (s Z)^{-1}) / 2.
     At convergence Z -> sign(A) = -I and X = Q_inf / 2."""
     k = a.shape[0]
     z, q = a, c
     for _ in range(iterations):
-        zinv = torch.linalg.inv(z)
-        _, logdet = torch.linalg.slogdet(z)
+        zinv = calls.inv(z)
+        _, logdet = calls.slogdet(z)
         s = torch.exp(-logdet / k)
         s = torch.where(torch.isfinite(s) & (s > 0), s, torch.ones_like(s))
         z_new = 0.5 * (s * z + zinv / s)
@@ -249,13 +299,13 @@ def _lyap_sign(a, c, iterations: int = 30):
     return _sym(0.5 * q)
 
 
-def _lyap_kron(a, c, e=None):
+def _lyap_kron(a, c, e=None, calls=EAGER_CALLS):
     """Row-major Kronecker solve: (a (x) e + e (x) a) rvec(x) = -rvec(c)."""
     k = a.shape[0]
     if e is None:
         e = torch.eye(k, dtype=a.dtype, device=a.device)
     big = torch.kron(a, e) + torch.kron(e, a)
-    x = torch.linalg.solve(big, -c.reshape(-1))
+    x = calls.solve(big, -c.reshape(-1))
     return _sym(x.reshape(k, k))
 
 
@@ -265,7 +315,8 @@ def lyap(a: torch.Tensor, c: torch.Tensor, e: Optional[torch.Tensor] = None,
          e_kind: Optional[str] = None, sign_iterations: int = 30,
          refine: Optional[int] = None,
          refine_generalized: Optional[int] = None,
-         _schur_route: Optional[str] = None) -> torch.Tensor:
+         _schur_route: Optional[str] = None,
+         calls: DenseCalls = EAGER_CALLS) -> torch.Tensor:
     """Solve A X E' + E X A' + C = 0 for symmetric X.
 
     Args:
@@ -295,6 +346,9 @@ def lyap(a: torch.Tensor, c: torch.Tensor, e: Optional[torch.Tensor] = None,
     if refine_generalized is None:
         refine_generalized = 0 if e is None else (
             8 if e_kind == "general" else 2)
+    if calls is not EAGER_CALLS and (e is not None or method == "schur"):
+        raise ValueError("lyap: other dense calls serve only the eigh, "
+                         "sign and kron routes without e")
 
     d = None
     if e is not None:
@@ -304,7 +358,7 @@ def lyap(a: torch.Tensor, c: torch.Tensor, e: Optional[torch.Tensor] = None,
         e = d[:, None] * e * d[None, :]
 
     if method == "kron":
-        x = _lyap_kron(a, c, e)
+        x = _lyap_kron(a, c, e, calls)
         # X = D X_bal D (the balanced solution is X_bal = D^{-1} X D^{-1})
         return x if d is None else x * d[:, None] * d[None, :]
 
@@ -315,12 +369,12 @@ def lyap(a: torch.Tensor, c: torch.Tensor, e: Optional[torch.Tensor] = None,
         a_red, c_fwd, back = _reduce_generalized(a, c, e, e_kind)
 
     if method == "eigh":
-        slv = _eigh_factor(a_red)
+        slv = _eigh_factor(a_red, calls)
     elif method == "schur":
         slv = _schur_factor(a_red, route=_schur_route)
     elif method == "sign":
         slv = functools.partial(_lyap_sign, a_red,
-                                iterations=sign_iterations)
+                                iterations=sign_iterations, calls=calls)
     else:
         raise ValueError(f"unknown method {method!r}")
 

@@ -2,10 +2,13 @@
 n=65536 float64 solve (the JAX bench's phase_scale problem, solved
 plainly at float64), on one CUDA card.
 
-    python3 -m rails_tpu_torch.profile_solve [--iters 60]
+    python3 -m rails_tpu_torch.profile_solve [--iters 60] [--compiled]
 
 Runs a warm-up solve, then one unprofiled and one profiled solve of
-``--iters`` iterations (maxit), and prints one JSON line: the card, the
+``--iters`` iterations (maxit) - with ``--compiled`` through
+``solve(compiled=True)``, the recorded iteration replayed (one engine
+cache across the three solves, so only the warm-up records) - and
+prints one JSON line: the card, the
 unprofiled wall per iteration, the device's busy time per iteration (the
 sum of the device-side events' times), the idle share they imply against
 the unprofiled wall, and the top kernels and top host-side ops by device
@@ -50,6 +53,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=60)
     ap.add_argument("--side", type=int, default=256)
+    ap.add_argument("--compiled", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_solve needs a CUDA device")
@@ -64,15 +68,21 @@ def main():
     opts = dict(tol=1e-4, expand=8, restart_size=160, reduced_size=80,
                 dtype=torch.float64)
 
+    cache = {}
+
     def solve(maxit):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, _, info = rt.LyapunovSolver(aop, b, mop, maxit=maxit,
-                                       **opts).solve()
+        # maxit is part of the engine key: the warm-up records it too
+        _, _, info = rt.LyapunovSolver(
+            aop, b, mop, maxit=maxit, engine_cache=cache,
+            **opts).solve(compiled=args.compiled)
         torch.cuda.synchronize()
         return time.perf_counter() - t0, info.iter
 
     solve(20)  # warm-up: kernel build, cuBLAS / cuSOLVER handles
+    if args.compiled:
+        solve(args.iters)   # records the engine of this maxit
     wall, iters = solve(args.iters)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -96,6 +106,7 @@ def main():
 
     print(json.dumps({
         "nvidia_smi": smi, "n": args.side ** 2, "iters": iters,
+        "compiled": args.compiled,
         "wall_s": wall, "ms_per_iter": wall / iters * 1e3,
         "profiled_wall_s": wall_prof,
         "device_busy_ms_per_iter": busy_us / iters / 1e3,

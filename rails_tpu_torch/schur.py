@@ -108,6 +108,10 @@ def _bicgstab(matvec, b: torch.Tensor, *, tol: float, maxiter: int,
     return x
 
 
+_HOST_STEPS = {"native_lu": "the A11 solve of native_lu",
+               "iterative": "the stopping test of the A11 BiCGStab"}
+
+
 class SchurReduction:
     """Holds the reduced operators; use .operator/.ms/.bs with the solver.
 
@@ -307,8 +311,13 @@ class SchurReduction:
             return self.A22.rmatmat(x) - self.A12.rmatmat(
                 self.a11_solve_t(self.A21.rmatmat(x)))
 
-        return CallableOperator(apply, (self.n2, self.n2), rfn=apply_t,
-                                is_hurwitz=self.hurwitz)
+        op = CallableOperator(apply, (self.n2, self.n2), rfn=apply_t,
+                              is_hurwitz=self.hurwitz)
+        # what a recorded iteration (solve(compiled=True) on the card)
+        # cannot capture inside an apply of S: the native LU's host solve,
+        # BiCGStab's host-side stopping test
+        op.host_steps = _HOST_STEPS.get(self.a11_solver_kind)
+        return op
 
     @property
     def ms(self) -> DiagonalOperator:

@@ -32,7 +32,8 @@ def test_import_pulls_in_no_jax():
             "rails_tpu_torch.parallel.sharded, "
             "rails_tpu_torch.parallel.schur_dist, "
             "rails_tpu_torch.parallel.multihost, "
-            "rails_tpu_torch.kernel_ablation\n"
+            "rails_tpu_torch.kernel_ablation, rails_tpu_torch.core.engine, "
+            "rails_tpu_torch.capture_audit\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'rails_tpu.')) or "
             "m == 'rails_tpu')\n"

@@ -144,9 +144,19 @@ def test_f32_reaches_1e8_in_both(rng):
 
 
 def test_compiled_still_raises(rng):
+    """solve_refined(compiled=True) runs every stage through the
+    recorded iteration and reaches the case's 1e-8 target (true
+    residual at most 1.1e-8, the JAX bench's acc_target_met), with the
+    eager run's stage iteration counts."""
     a, b32 = tridiag(rng, 64, 2)
     at = rt.sparse_from_scipy(a, fmt="dia", dtype=torch.float32,
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="CUDA graphs"):
-        rt.solve_refined(at, torch.from_numpy(b32), compiled=True,
-                         device="cpu")
+    kw = dict(tol=1e-8, maxit=100, expand=2, precision="compensated",
+              device="cpu")
+    ve, te, ie = rt.solve_refined(at, torch.from_numpy(b32), **kw)
+    vc, tc, ic = rt.solve_refined(at, torch.from_numpy(b32), compiled=True,
+                                  **kw)
+    assert ic.converged and ie.converged
+    assert [s.iter for s in ic.stages] == [s.iter for s in ie.stages]
+    assert all(s.engine is not None for s in ic.stages)
+    assert true_rel(a, vc.numpy(), tc.numpy(), b32) <= 1.1e-8

@@ -1,7 +1,8 @@
 """The port's solver on the CPU: the JAX package's solver tests
 (tests/test_solver.py) run against ``rails_tpu_torch``, including the
-r0sq and M-presence regressions, plus the options this slice does not
-port yet, which must raise."""
+r0sq and M-presence regressions; ``TestNotPortedYet`` held the options
+that raised before they were ported and now checks them against the
+eager path."""
 
 import numpy as np
 import pytest
@@ -257,19 +258,31 @@ class TestRegressions:
 
 class TestNotPortedYet:
     def test_compiled_raises(self, rng):
+        """compiled=True is ported (core/engine.py): on the CPU it runs
+        the recorded iteration eagerly and converges to the eager path's
+        iteration count and solution."""
         a, b = tri(rng)
-        with pytest.raises(NotImplementedError, match="CUDA graphs"):
-            rt.solve(a, b, compiled=True, **CPU)
+        v0, t0, i0 = rt.solve(a, b, tol=1e-6, **CPU)
+        v1, t1, i1 = rt.solve(a, b, tol=1e-6, compiled=True, **CPU)
+        assert i1.converged and i1.iter == i0.iter
+        assert v1.shape == v0.shape
+        assert true_residual(a, v1, t1, b) < 1e-4
+        x0, x1 = v0 @ t0 @ v0.T, v1 @ t1 @ v1.T
+        assert (x1 - x0).abs().max().item() < 1e-10
 
     def test_compensated_raises(self, rng):
-        # compensated precision is ported; compiled=True with it still
-        # raises (CUDA graphs are not ported)
+        # compiled=True with compensated precision: the same iteration
+        # count and solution as the eager compensated solve
         a, b = tri(rng)
         v, t, info = rt.solve(a, b, tol=1e-6, precision="compensated",
                               **CPU)
         assert info.converged and true_residual(a, v, t, b) < 1e-4
-        with pytest.raises(NotImplementedError, match="CUDA graphs"):
-            rt.solve(a, b, precision="compensated", compiled=True, **CPU)
+        v1, t1, i1 = rt.solve(a, b, tol=1e-6, precision="compensated",
+                              compiled=True, **CPU)
+        assert i1.converged and i1.iter == info.iter
+        assert true_residual(a, v1, t1, b) < 1e-4
+        x0, x1 = v @ t @ v.T, v1 @ t1 @ v1.T
+        assert (x1 - x0).abs().max().item() < 1e-10
 
     def test_scipy_input_goes_through_dia(self, rng):
         a, b = tri(rng)
