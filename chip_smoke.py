@@ -181,10 +181,32 @@ exits nonzero and never prints the last line):
               compiled steps through one engine cache: its size after
               each step ([1, 2, 2]: the cold and the warm engines), no
               capture on the third step.
+25. compiled_schur - cli_schur's side-192 DAE reduced with
+              a11_solver="native_lu" and solved through
+              ``solve(compiled=True)`` at cli_schur's parameters: the host
+              A11 solve of each S apply a host step between graph
+              segments (``engine.host_call``), held against the eager
+              solver at full capacity on the same reduction: iterations
+              and status both ways (equal, or within 1%), the f64 true
+              residual of the reduced equation <= 2 tol (S through scipy
+              splu of A11), wall and s per iteration both ways, graph
+              segments, host steps and switch reads per iteration, ELL
+              launches per iteration, capture seconds, peak memory, and
+              cli_schur's eager dense_lu wall beside it; then the same for
+              inv_a=red.sinv("native_lu") with projection_method 2.2 on
+              the side-96 DAE.
+26. examples - examples/continuation_sequence_torch.py and
+              examples/distributed_schur_torch.py on the card as
+              subprocesses: exit 0, warm steps and the resumed step below
+              the cold count, the distributed count equal to the
+              single-controller one, true residual < 1e-7, "ok".
+27. continuation_full_capacity - continuation_wide's eager steps with
+              the state at full capacity, each step's iterations beside
+              the eager (ladder) and compiled counts (phase 24).
 
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  ``--only`` runs env, build and the named
-phases of 8-24 and stops there (no kernel table, no last line); a
+phases of 8-27 and stops there (no kernel table, no last line); a
 compiled phase then runs its eager counterpart itself.
 """
 
@@ -208,6 +230,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 # the eager runs' lines that the compiled phases (21-24) compare with,
 # filled by the phases that run them
 EAGER = {}
+# the compiled runs that phase 27 compares with, filled by phase 24
+COMPILED = {}
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}  # outside tensor cores
 PEAK_BF16_FLOPS = 989e12    # dense bf16 on the tensor cores
 TOL = {"float32": 1e-5, "float64": 1e-12}
@@ -539,6 +563,15 @@ def timing_ell_case(torch, em, label, ell, s, gen, reps, floor):
     return row
 
 
+def schur_residual(blk, lu, m2, b2, v, t):
+    """f64 true residual of S X M22 + M22 X S' + Bs Bs' for X = V T V'
+    (numpy V and T), S applied on the host with A11 by ``lu`` (scipy's
+    splu), M22 = diag(m2), Bs = b2 (zero in the singular rows)."""
+    sv = blk["A22"] @ v - blk["A21"] @ lu.solve(blk["A12"] @ v)
+    return factored_residual(sv, m2[:, None] * v, b2, t,
+                             np.random.default_rng(1))
+
+
 def host_schur(a, md, b, v, t):
     """The reduced equation and the full-space solution operator on the
     host in float64, A11 by scipy's splu: returns (f64 true residual of
@@ -549,9 +582,7 @@ def host_schur(a, md, b, v, t):
     i1, i2, blk = schur_blocks(a, md)
     lu = spla.splu(blk["A11"].tocsc())
     a12 = blk["A12"]
-    sv = blk["A22"] @ v - blk["A21"] @ lu.solve(a12 @ v)
-    res = factored_residual(sv, md[i2][:, None] * v, b[i2], t,
-                            np.random.default_rng(1))
+    res = schur_residual(blk, lu, md[i2], b[i2], v, t)
 
     def x22(y):
         return v @ (t @ (v.T @ y))
@@ -1289,6 +1320,7 @@ def run_earlier_phases(torch, rt, spmm, em, smi, gen):
     out_cli.update({"qr_route_iters": 396,
                     "phase_wall_s": time.perf_counter() - t0})
     emit(out_cli)
+    EAGER["cli_schur"] = out_cli
     return {"dia": (main_launches, slice_err, timings[0]),
             "ell": (out_cli["ell_spmm_launches"], ell_slice_err,
                     ell_timings[0]),
@@ -1813,6 +1845,7 @@ def compiled_stats(info):
     e = info.engine
     return {"engine_iterations": e["iterations"],
             "segments_per_iter": e["segments_per_iter"],
+            "host_steps_per_iter": e["host_steps_per_iter"],
             "host_reads_per_iter": e["host_reads_per_iter"],
             "launches_per_iter": e["launches_per_iter"],
             "capture_s": e["capture_s"], "captured": e["captured"],
@@ -1840,8 +1873,9 @@ def compare_eager(label, eager, comp, res_tol, res_key="res_true_f64",
                 "eager": eager.get("max_memory_allocated"),
                 "compiled": comp.get("max_memory_allocated")}}
     case["speedup"] = case["wall_s"]["eager"] / case["wall_s"]["compiled"]
-    for k in ("segments_per_iter", "host_reads_per_iter",
-              "launches_per_iter", "capture_s", "program"):
+    for k in ("segments_per_iter", "host_steps_per_iter",
+              "host_reads_per_iter", "launches_per_iter", "capture_s",
+              "program"):
         if k in comp:
             case[k] = comp[k]
     if ladder is not None:
@@ -2078,8 +2112,10 @@ def run_compiled_phases(torch, rt, spmm, em, wm, refine_mod, gen, only,
         t0 = time.perf_counter()
         ref = eager.get("continuation_wide")
         if ref is None:
-            ref = run_continuation_wide(torch, rt, em, wm)
+            ref = eager["continuation_wide"] = run_continuation_wide(
+                torch, rt, em, wm)
         comp = run_continuation_wide(torch, rt, em, wm, compiled=True)
+        COMPILED["continuation_wide"] = comp
         steps = []
         for r, c in zip(ref["steps"], comp["steps"]):
             step = {k: c[k] for k in (
@@ -2110,6 +2146,210 @@ def run_compiled_phases(torch, rt, spmm, em, wm, refine_mod, gen, only,
                                  f"did not replay the second's engine: "
                                  f"{out}")
         emit(out)
+
+
+# ----------------------------------------------------------------------
+# phases 25-27: compiled=True with host steps in the operator and inv_a,
+# the ported examples, the continuation's steps at full capacity
+# ----------------------------------------------------------------------
+CLI_OPTS = dict(tol=1e-4, expand=8, restart_size=160, reduced_size=80,
+                maxit=3000)   # cli_schur's parameters (run_cli_schur)
+
+
+def run_schur_solve(torch, rt, em, label, side, a11, compiled, sinv=None):
+    """The side-``side`` Laplacian DAE (``laplacian_dae``) reduced by
+    ``schur_reduce(a11_solver=a11)`` at float64 and solved through
+    ``rt.solve(red.operator, red.bs, red.ms)`` with cli_schur's
+    parameters, compiled or eager (``sinv``: ``inv_a=red.sinv(sinv)``
+    with projection_method 2.2); counts reset just before the solve,
+    read just after.  Raises unless it converged with the f64 true
+    residual of the reduced equation (S through scipy's splu of A11)
+    <= 2 tol and launched the ELL kernel."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    a, md, b = laplacian_dae(side)
+    t0 = time.perf_counter()
+    red = rt.schur_reduce(a, sp.diags(md).tocsr(), b, a11_solver=a11,
+                          dtype=torch.float64)
+    reduce_s = time.perf_counter() - t0
+    kw = {} if sinv is None else {"inv_a": red.sinv(sinv),
+                                  "projection_method": 2.2}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    em.ell_spmm.launches = 0
+    t0 = time.perf_counter()
+    v, t, info = rt.solve(red.operator, red.bs, red.ms, compiled=compiled,
+                          **CLI_OPTS, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = em.ell_spmm.launches
+    peak = torch.cuda.max_memory_allocated()
+    _, i2, blk = schur_blocks(a, md)
+    lu = spla.splu(blk["A11"].tocsc())
+    res_true = schur_residual(blk, lu, md[i2], b[i2],
+                              v.detach().cpu().double().numpy(),
+                              t.detach().cpu().double().numpy())
+    out = {"case": label, "n": a.shape[0], "n1": red.n1, "n2": red.n2,
+           "a11_solver": a11, "inv_a": sinv, "compiled": compiled,
+           "iters": info.iter, "status": info.status,
+           "converged": info.status == 0, "res": info.res,
+           "rank": int(v.shape[1]), "res_true_f64": res_true,
+           "tol": CLI_OPTS["tol"], "wall_s": wall,
+           "s_per_iter": wall / max(info.iter, 1), "reduce_s": reduce_s,
+           "max_memory_allocated": peak, "ell_spmm_launches": launches,
+           "ell_launches_per_iter": launches / max(info.iter, 1)}
+    if compiled:
+        out.update(compiled_stats(info))
+        out["switch_reads_per_iter"] = \
+            info.engine["switch_reads"] / max(info.iter, 1)
+        out["host_step_sources"] = info.engine["host_step_sources"]
+    if info.status != 0 or res_true > 2 * CLI_OPTS["tol"]:
+        raise AssertionError(f"{label} did not converge to 2 tol: {out}")
+    if launches <= 0:
+        raise AssertionError(f"{label} never launched ell_spmm: {out}")
+    return out
+
+
+def run_example(name, timeout=300):
+    """``python examples/<name>`` on the card as a subprocess of this
+    script; raises unless it exits 0.  Returns (stdout, wall s)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable,
+                           os.path.join(here, "examples", name)],
+                          cwd=here, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"examples/{name} exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    return proc.stdout, wall
+
+
+def run_examples():
+    """Phase 26: both ported examples on the card: the continuation's
+    cold, warm and resumed counts (warm < cold), the Schur example's
+    distributed and single-controller counts, its true residual and its
+    ``ok``."""
+    text, wall = run_example("continuation_sequence_torch.py")
+    rows = [ln.split() for ln in text.splitlines()
+            if re.match(r"^\s*\d+\.\d\d\s+\d+\s", ln)]
+    steps = [{"theta": float(r[0]), "iters": int(r[1]),
+              "res": float(r[2]), "wall_s": float(r[3].rstrip("s"))}
+             for r in rows]
+    mt = re.search(r"checkpoint: (\d+) iterations", text)
+    cont = {"example": "continuation_sequence_torch.py", "steps": steps,
+            "resumed_iters": int(mt.group(1)) if mt else None,
+            "process_wall_s": wall}
+    cold = steps[0]["iters"] if steps else None
+    if len(steps) != 3 or cont["resumed_iters"] is None or any(
+            s["iters"] >= cold for s in steps[1:]) \
+            or cont["resumed_iters"] >= cold:
+        raise AssertionError(f"continuation example: warm steps not "
+                             f"faster than the cold one: {cont} {text}")
+    text, wall = run_example("distributed_schur_torch.py")
+
+    def grab(pattern, cast=int):
+        mt = re.search(pattern, text)
+        return cast(mt.group(1)) if mt else None
+
+    schur = {"example": "distributed_schur_torch.py",
+             "n1": grab(r"n1=(\d+)"), "n2": grab(r"n2=(\d+)"),
+             "distributed_iters": grab(r"distributed solve: (\d+)"),
+             "single_iters": grab(r"single-controller:\s+(\d+)"),
+             "res_true": grab(r"true relative residual: (\S+)", float),
+             "operator": grab(r"distributed operator: (\w+)", str),
+             "ok": text.strip().splitlines()[-1] == "ok",
+             "process_wall_s": wall}
+    if not schur["ok"] or schur["distributed_iters"] != \
+            schur["single_iters"] or not schur["res_true"] < 1e-7:
+        raise AssertionError(f"distributed Schur example failed: {schur} "
+                             f"{text}")
+    return [cont, schur]
+
+
+def run_slice_phases(torch, rt, em, wm, only, eager):
+    """Phases 25-27, those not in ``only`` skipped (None: all).  Returns
+    the ELL launches of phase 25's compiled native_lu solve (None when
+    skipped)."""
+    def want(name):
+        return only is None or name in only
+
+    launches = None
+    # ---- 25. compiled_schur: native_lu's host A11 solves as host steps
+    if want("compiled_schur"):
+        t0 = time.perf_counter()
+        cases = []
+        for label, side, sinv in (("native_lu", CLI_SIDE, None),
+                                  ("inv_a_native_lu", MESH_CLI_SIDE,
+                                   "native_lu")):
+            with full_capacity():
+                full = run_schur_solve(torch, rt, em, f"{label}_eager_full",
+                                       side, "native_lu", False, sinv)
+            comp = run_schur_solve(torch, rt, em, f"{label}_compiled", side,
+                                   "native_lu", True, sinv)
+            case = compare_eager(label, full, comp, 2 * CLI_OPTS["tol"])
+            case.update({
+                "side": side, "n": comp["n"], "n1": comp["n1"],
+                "n2": comp["n2"],
+                "iters_equal": comp["iters"] == full["iters"],
+                "switch_reads_per_iter": comp["switch_reads_per_iter"],
+                "host_step_sources": comp["host_step_sources"],
+                "ell_spmm_launches": {"eager": full["ell_spmm_launches"],
+                                      "compiled": comp["ell_spmm_launches"]},
+                "ell_launches_per_iter": {
+                    "eager": full["ell_launches_per_iter"],
+                    "compiled": comp["ell_launches_per_iter"]},
+                "reduce_s": comp["reduce_s"]})
+            if label == "native_lu":
+                launches = comp["ell_spmm_launches"]
+                cli = eager.get("cli_schur")
+                if cli is not None:
+                    case["cli_schur_dense_lu_eager"] = {
+                        k: cli[k] for k in ("iters", "wall_s",
+                                            "s_per_iter", "res_true_f64")}
+                    case["speedup_over_cli_schur"] = \
+                        cli["wall_s"] / comp["wall_s"]
+            cases.append(case)
+        emit({"phase": "compiled_schur", "cases": cases,
+              "wall_s": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+
+    # ---- 26. examples: the two ported examples on the card
+    if want("examples"):
+        t0 = time.perf_counter()
+        emit({"phase": "examples", "runs": run_examples(),
+              "wall_s": time.perf_counter() - t0})
+
+    # ---- 27. the continuation's steps at full capacity, eager
+    if want("continuation_full_capacity"):
+        t0 = time.perf_counter()
+        ladder = eager.get("continuation_wide")
+        if ladder is None:
+            ladder = run_continuation_wide(torch, rt, em, wm)
+        comp = COMPILED.get("continuation_wide")
+        if comp is None:
+            comp = run_continuation_wide(torch, rt, em, wm, compiled=True)
+        with full_capacity():
+            full = run_continuation_wide(torch, rt, em, wm)
+        steps = [{"theta": c["theta"],
+                  "iters": {"eager_ladder": e["iters"],
+                            "eager_full_capacity": f["iters"],
+                            "compiled": c["iters"]},
+                  "res_true_f64": {"eager_full_capacity": f["res_true_f64"],
+                                   "compiled": c["res_true_f64"]},
+                  "wall_s": {"eager_full_capacity": f["wall_s"],
+                             "compiled": c["wall_s"]},
+                  "compiled_equals_full_capacity": c["iters"] == f["iters"]}
+                 for e, f, c in zip(ladder["steps"], full["steps"],
+                                    comp["steps"])]
+        emit({"phase": "continuation_full_capacity", "steps": steps,
+              "all_steps_equal": all(st["compiled_equals_full_capacity"]
+                                     for st in steps),
+              "wall_s": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+    return launches
 
 
 def wall_ms(torch, fn, reps):
@@ -2525,7 +2765,8 @@ NEW_PHASES = ("compare_wide", "timing_wide", "refined_acc", "refined_scale",
               "continuation_wide", "compare_halo", "timing_halo",
               "mesh_solve", "mesh_ell", "mesh_schur", "schur_lapack",
               "schur_native", "hub", "compiled_solve", "compiled_mesh",
-              "compiled_refined", "compiled_continuation")
+              "compiled_refined", "compiled_continuation", "compiled_schur",
+              "examples", "continuation_full_capacity")
 
 
 def parse_only(argv):
@@ -2594,6 +2835,7 @@ def main():
         None if earlier is None else earlier["cli_schur"])
     run_compiled_phases(torch, rt, spmm, em, wm, refine_mod, gen, only,
                         EAGER)
+    schur_launches = run_slice_phases(torch, rt, em, wm, only, EAGER)
     if only is not None:
         return
 
@@ -2611,6 +2853,7 @@ def main():
     ell_row = row("ell_spmm", "rails_tpu_torch/csrc/ell_spmm.cu",
                   "rails_tpu/sparse/ell_spmm.py:344", *earlier["ell"])
     ell_row["hub_solve_launches"] = hub_launches
+    ell_row["compiled_schur_launches"] = schur_launches
     emit({"kernels": [
         row("dia_spmm", "rails_tpu_torch/csrc/dia_spmm.cu",
             "rails_tpu/sparse/spmm.py:75", *earlier["dia"]),

@@ -17,7 +17,10 @@ On the card an iteration is recorded once as a *program* and replayed:
   the next segment reads.  ``torch.linalg.eigh`` is one: it checks
   LAPACK's ``info`` on the host, and cuSOLVER's syevd and syevj do not
   capture either (``rails_tpu_torch/capture_audit.py``).  The projected Schur
-  route on the card (zgees and trsyl on the host) is another;
+  route on the card (zgees and trsyl on the host) is another, and so is
+  any call that code outside the solver routes through ``host_call``: a
+  Schur operator's host A11 solve (``native_lu``, the BiCGStab of
+  ``iterative``), the expansion's ``inv_a``;
 - **one switch** per iteration: the host reads a one-word code (done,
   restart or expand) and replays that branch's program.  PyTorch 2.11
   has no conditional graph nodes, and the restart needs one more eigh,
@@ -58,7 +61,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["DeviceState", "Engine", "structure", "CODE_DONE",
+__all__ = ["DeviceState", "Engine", "structure", "host_call", "CODE_DONE",
            "CODE_RESTART", "CODE_EXPAND"]
 
 # the switch codes of one iteration
@@ -92,6 +95,26 @@ def _set_counts(counts) -> None:
 def _add_counts(delta) -> None:
     for w, n in zip(_wrappers(), delta):
         w.launches += n
+
+
+# the recorder whose capture is under way, None outside a capture and
+# inside a host step
+_ACTIVE: Optional["Recorder"] = None
+
+
+def host_call(fn, *args):
+    """``fn(*args)`` as a host step of the iteration being recorded, for
+    code the solver calls but does not own: an operator's apply that
+    leaves the device (a host LU solve, a loop that reads a device
+    scalar), a user's ``inv_a``.  A plain call when nothing records: on
+    the CPU, in an eager solve, in the warm-up iteration, in a replay
+    (the recorded host step calls ``fn`` itself) and inside another host
+    step.  ``fn``'s tensor arguments must be tensors the iteration
+    computed; its outputs land in buffers the next segment reads."""
+    rec = _ACTIVE
+    if rec is None or not rec.capturing:
+        return fn(*args)
+    return rec.host(fn, *args)
 
 
 # ----------------------------------------------------------------------
@@ -175,8 +198,10 @@ def _tensors(obj) -> List[torch.Tensor]:
 
 def clone_tree(obj):
     """A copy of ``obj`` whose tensors are new buffers with the same
-    values (the engine's own payloads); host data and foreign objects
-    are shared."""
+    values (the engine's own payloads); host data, foreign objects and
+    objects of this package that hold no tensor are shared (a
+    ``NativeSparseLU`` owns a host handle that its copy would free a
+    second time)."""
     memo = {}
 
     def walk(x):
@@ -186,7 +211,7 @@ def clone_tree(obj):
             return tuple(walk(y) for y in x)
         if isinstance(x, list):
             return [walk(y) for y in x]
-        if not _ours(x):
+        if not _ours(x) or not _tensors(x):
             return x
         if id(x) in memo:
             return memo[id(x)]
@@ -318,10 +343,12 @@ class EngineStats:
 
     def summary(self) -> dict:
         """The counts, and per iteration: graph segments replayed, host
-        reads (host steps and switch reads), kernel launches."""
+        steps, host reads (host steps and switch reads), kernel
+        launches."""
         n = max(self.iterations, 1)
         return dict(dataclasses.asdict(self),
                     segments_per_iter=self.segments / n,
+                    host_steps_per_iter=self.host_steps / n,
                     host_reads_per_iter=(self.host_steps
                                          + self.switch_reads) / n,
                     launches_per_iter=self.launches / n)
@@ -340,15 +367,23 @@ class Recorder:
 
     # ---- the hooks --------------------------------------------------
     def host(self, fn, *args):
+        global _ACTIVE
         if not self.capturing:
             return fn(*args)
         self._end()
-        outs = fn(*args)
+        _ACTIVE = None          # host_call inside fn: a plain call
+        before = _counts()
+        try:
+            outs = fn(*args)
+        finally:
+            _ACTIVE = self
         single = isinstance(outs, torch.Tensor)
         static = tuple(o.clone() for o in ((outs,) if single else outs))
         self._prog[-1].append(_Host(fn, args, static, single))
         if self._exec[-1]:
             self.engine.stats.host_steps += 1
+            self.engine.stats.launches += sum(
+                a - b for a, b in zip(_counts(), before))
         self._begin()
         return static[0] if single else static
 
@@ -385,10 +420,13 @@ class Recorder:
         (each segment is replayed right after its capture).  The cyclic
         garbage collector is held off meanwhile: a dead engine's graphs
         freed during a capture would destroy graph executables, which
-        CUDA forbids while a stream captures."""
+        CUDA forbids while a stream captures.  ``host_call`` reaches
+        this recorder while it records."""
+        global _ACTIVE
         gc.collect()
         gc.disable()
         self.capturing = True
+        _ACTIVE = self
         self._prog, self._exec = [[]], [True]
         self._after_switch = False
         self._begin()
@@ -402,6 +440,7 @@ class Recorder:
             raise
         finally:
             self.capturing = False
+            _ACTIVE = None
             gc.enable()
         if self._after_switch:
             # the iteration ends at its switch: drop the empty tail
@@ -439,11 +478,14 @@ class Recorder:
             if isinstance(node, _Graph):
                 eng.replay_graph(node)
             elif isinstance(node, _Host):
+                before = _counts()
                 outs = node.fn(*node.args)
                 for s, o in zip(node.outs,
                                 (outs,) if node.single else outs):
                     s.copy_(o)
                 eng.stats.host_steps += 1
+                eng.stats.launches += sum(
+                    a - b for a, b in zip(_counts(), before))
             else:
                 self.code = int(node.code)
                 eng.stats.switch_reads += 1

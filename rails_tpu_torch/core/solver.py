@@ -53,12 +53,13 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from rails_tpu_torch.core.engine import host_call
 from rails_tpu_torch.core.options import (
     InvalidOption, InverseNotUsedWarning, ProjectionMethodWarning,
     SingularMassMatrixWarning, SolverOptions)
 from rails_tpu_torch.linalg import dense_lyap
 from rails_tpu_torch.operators import (
-    LinearOperator, as_operator, operator_norm2)
+    DenseOperator, LinearOperator, as_operator, operator_norm2)
 from rails_tpu_torch.timer import timer
 from rails_tpu_torch.utils.compensated import dot2, gram2
 from rails_tpu_torch.utils.device import as_tensor, resolve_device
@@ -268,8 +269,9 @@ class LyapunovSolver:
 
     def _check_singular_m(self) -> None:
         """Warn when the mass matrix looks singular - the reference's
-        condest(M) > 1e12 check (RAILSsolver.m:272-277), for a diagonal or
-        DIA M (exact on the diagonal, a host sparse LU on DIA)."""
+        condest(M) > 1e12 check (RAILSsolver.m:272-277): exact on a
+        diagonal M, a host sparse LU and condest on a sparse M or a dense
+        one with m <= 4096."""
         M = self.M
         if M is None:
             return
@@ -282,17 +284,32 @@ class LyapunovSolver:
                     "to use the provided schur_reduce method.",
                     SingularMassMatrixWarning)  # RAILSsolver.m:273-277
             return
+        m = M.shape[0]
+        if m > 200_000:  # a host sparse LU at this size is a second
+            # solve, not a check; narrate the skip
+            if self.options.verbosity > 0:
+                print(f"rails_tpu_torch: skipping singular-M condest "
+                      f"check (m={m} > 200000); if M may be singular, "
+                      f"use schur_reduce")
+            return
+        import scipy.sparse as sp
+        import scipy.sparse.linalg as spla
+
         from rails_tpu_torch.sparse.formats import (
             SparseOperator, payload_to_scipy)
 
-        if not isinstance(M, SparseOperator) or M.shape[0] > 200_000:
+        if isinstance(M, SparseOperator):
+            mat = payload_to_scipy(M.fwd).tocsc()
+        elif isinstance(M, DenseOperator) and m <= 4096:
+            mat = sp.csc_matrix(M.a.detach().cpu().numpy())
+        else:
+            # matrix-free M, or a dense one too large to copy: nothing
+            # to inspect on the host
             if self.options.verbosity > 0:
-                print("rails_tpu_torch: skipping singular-M condest check; "
-                      "if M may be singular, use schur_reduce")
+                print("rails_tpu_torch: skipping singular-M condest check "
+                      "(matrix-free M, or a dense M above 4096 rows); if "
+                      "M may be singular, use schur_reduce")
             return
-        import scipy.sparse.linalg as spla
-
-        mat = payload_to_scipy(M.fwd).tocsc()
         try:
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")  # splu singular warnings
@@ -442,26 +459,22 @@ class LyapunovSolver:
                 structure(self.A, pins), structure(self.M, pins),
                 structure(self.B, pins))
 
-    def _check_capturable(self) -> None:
-        """On the card, refuse what a recorded iteration cannot hold: a
-        user ``inv_a`` that the expansion calls (a host callable) and
-        operators with host steps inside their apply (a Schur reduction
-        whose A11 solve is ``native_lu`` or ``iterative``)."""
-        if self.device.type != "cuda":
-            return
-        opt = self.options
-        if opt.inv_a is not None and opt.uses_inverse_on_expand:
-            raise InvalidOption(
-                "compiled=True on the card cannot record inv_a (a host "
-                "callable); use compiled=False (ROADMAP, Queue 3)")
+    def _host_steps(self) -> dict:
+        """What the recorded iteration runs as host steps besides eigh,
+        the card's Schur route and the switch: each operator's
+        ``host_steps`` tag (a Schur reduction's ``native_lu`` or
+        ``iterative`` A11 solve, through ``engine.host_call``) and an
+        ``inv_a`` that the expansion applies (a user's callable, always a
+        host step).  Reported in ``info.engine``."""
+        out = {}
         for name, op in (("A", self.A), ("M", self.M), ("B", self.B)):
             kind = getattr(op, "host_steps", None)
             if kind:
-                raise InvalidOption(
-                    f"compiled=True on the card cannot record operator "
-                    f"{name}: its apply runs {kind} on the host; use "
-                    f"a11_solver='dense_lu' or compiled=False (ROADMAP, "
-                    f"Queue 3)")
+                out[name] = kind
+        opt = self.options
+        if opt.inv_a is not None and opt.uses_inverse_on_expand:
+            out["inv_a"] = "the expansion's inv_a"
+        return out
 
     def _engine_for(self, st, ctx):
         """The cached engine for this solve's key, built at first use."""
@@ -518,7 +531,6 @@ class LyapunovSolver:
 
         opt = self.options
         m = self.A.shape[0]
-        self._check_capturable()
         with full_precision():
             with timer("Solver", "init"):
                 st, ctx = self._init_state(m)
@@ -570,6 +582,7 @@ class LyapunovSolver:
         stats = eng.stats.summary()
         stats["program"] = None if eng.program is None \
             else describe(eng.program)
+        stats["host_step_sources"] = self._host_steps()
         info = SolveInfo(res=res, iter=n_it, status=status, resvec=resvec,
                          timevec=timevec, mvps=mvps,
                          restart_data=restart_data, engine=stats)
@@ -1292,7 +1305,8 @@ class LyapunovSolver:
         opt = self.options
         w = cands
         if opt.inv_a is not None and opt.uses_inverse_on_expand:
-            wi = opt.inv_a(w)
+            # a callable of unknown kind: a host step of a recording
+            wi = host_call(opt.inv_a, w)
             w = torch.cat([w, wi], dim=1) if opt.expansion_doubles else wi
         if opt.fast_orthogonalization:
             return self._orthonormal_block_fast(st, ctx, w)

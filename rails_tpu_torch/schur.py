@@ -20,7 +20,8 @@ and the solver runs on (S, MS, BS).  Here:
   and applies it with ``lu_solve``; ``'native_lu'`` factors A11 once
   with the port's C++ sparse LU on the host (``native/host_lib.py``) and
   solves there, each solve a round trip device -> numpy -> LU -> device
-  (the counterpart of the JAX package's ``pure_callback``), O(nnz of the
+  (the counterpart of the JAX package's ``pure_callback``; a host step
+  of a recorded iteration, ``core/engine.py::host_call``), O(nnz of the
   factors) memory where the dense LU holds n1^2; ``'iterative'`` runs a
   Jacobi-preconditioned BiCGStab whose matvec is the A11 sparse operator
   (format by ``'auto'``); or any callable (MATLAB's opts.Ainv contract).
@@ -39,6 +40,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from rails_tpu_torch.core.engine import host_call
 from rails_tpu_torch.operators import (
     CallableOperator, DiagonalOperator, LinearOperator)
 from rails_tpu_torch.sparse.formats import SparseOperator, sparse_from_scipy
@@ -49,10 +51,14 @@ __all__ = ["SchurReduction", "schur_reduce"]
 
 def _host_solver(lu, trans: bool, rows=None, n=None):
     """x -> the native LU's solve of x on the host, back on x's device in
-    x's dtype.  With ``rows`` (and the full size ``n``), x is scattered
-    into those rows of a zero right-hand side and the solution read back
-    from them (``sinv``'s reorder trick)."""
+    x's dtype, a host step of a recorded iteration (``host_call``).  With
+    ``rows`` (and the full size ``n``), x is scattered into those rows of
+    a zero right-hand side and the solution read back from them
+    (``sinv``'s reorder trick)."""
     def solve(x):
+        return host_call(on_host, x)
+
+    def on_host(x):
         xh = x.detach().cpu().double().numpy()
         if rows is not None:
             rhs = np.zeros((n,) + xh.shape[1:])
@@ -109,7 +115,8 @@ def _bicgstab(matvec, b: torch.Tensor, *, tol: float, maxiter: int,
 
 
 _HOST_STEPS = {"native_lu": "the A11 solve of native_lu",
-               "iterative": "the stopping test of the A11 BiCGStab"}
+               "iterative": "the A11 BiCGStab (its stopping test reads "
+                            "the device)"}
 
 
 class SchurReduction:
@@ -249,10 +256,16 @@ class SchurReduction:
             def precond(r):
                 return r * dinv.reshape((-1,) + (1,) * (r.ndim - 1))
 
-            self.a11_solve = lambda x: _bicgstab(
-                a11_op.matmat, x, tol=tol, maxiter=maxiter, precond=precond)
-            self.a11_solve_t = lambda x: _bicgstab(
-                a11_op.rmatmat, x, tol=tol, maxiter=maxiter, precond=precond)
+            def solver(matvec):
+                # the whole BiCGStab is one host step of a recorded
+                # iteration: its stopping test reads the device
+                def run(x):
+                    return _bicgstab(matvec, x, tol=tol, maxiter=maxiter,
+                                     precond=precond)
+                return lambda x: host_call(run, x)
+
+            self.a11_solve = solver(a11_op.matmat)
+            self.a11_solve_t = solver(a11_op.rmatmat)
             self._a11_op = a11_op
             self._a11_tol_eff = tol
         else:
@@ -314,8 +327,9 @@ class SchurReduction:
         op = CallableOperator(apply, (self.n2, self.n2), rfn=apply_t,
                               is_hurwitz=self.hurwitz)
         # what a recorded iteration (solve(compiled=True) on the card)
-        # cannot capture inside an apply of S: the native LU's host solve,
-        # BiCGStab's host-side stopping test
+        # runs as a host step inside each apply of S (``host_call``): the
+        # native LU's host solve, BiCGStab with its host-side stopping
+        # test; reported in info.engine
         op.host_steps = _HOST_STEPS.get(self.a11_solver_kind)
         return op
 

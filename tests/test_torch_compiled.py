@@ -19,6 +19,8 @@ same iteration run eagerly there, bit for bit, and the registered
 generator's draws moving on across replays.
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -237,28 +239,116 @@ def test_structure_keys_operator_format(rng):
     assert len({sig[0], sig[2], sig[3]}) == 3
 
 
-def test_host_step_operators_refused_on_card(rng):
-    """On the card a recorded iteration cannot hold a host callable:
-    an inv_a that the expansion applies, or an operator whose apply has
-    host steps (a Schur reduction's native_lu or BiCGStab A11 solve),
-    raise InvalidOption there (the check runs on a solver moved to the
-    card by hand; the CPU runs them eagerly)."""
-    from rails_tpu_torch.core.options import InvalidOption
+class _StubRecorder:
+    """A recorder as ``host_call`` sees it while a capture is under way:
+    logs each host step's function and runs it."""
 
-    a, b = tridiagonal_problem(rng, 24, shift=-2.0)
-    a = 0.5 * (a + a.T) - 2.0 * np.eye(24)      # symmetric, stable
-    op = rt.CallableOperator(lambda x: torch.from_numpy(a) @ x, (24, 24),
-                             is_symmetric=True)
-    op.host_steps = "the A11 solve of native_lu"
-    cases = [(LyapunovSolver(a, b, inv_a=lambda x: x,
-                             projection_method=2.1, **CPU), "inv_a"),
-             (LyapunovSolver(op, b, **CPU), "operator A")]
-    for solver, what in cases:
-        solver.device = torch.device("cuda")
-        with pytest.raises(InvalidOption, match=what):
-            solver._check_capturable()
-    v, t, info = LyapunovSolver(op, b, tol=1e-8, **CPU).solve(compiled=True)
-    assert info.converged and true_rel(a, v, t, b) < 1e-6
+    capturing = True
+
+    def __init__(self):
+        self.steps = []
+
+    def host(self, fn, *args):
+        self.steps.append(fn)
+        engine_mod._ACTIVE = None   # as Recorder.host: nested calls plain
+        try:
+            return fn(*args)
+        finally:
+            engine_mod._ACTIVE = self
+
+
+def test_host_call_goes_through_the_active_recorder(monkeypatch):
+    """``engine.host_call`` is a plain call when nothing records, and a
+    host step of the recorder whose capture is under way; inside a host
+    step (the recorder's own ``host`` running ``fn``) a nested
+    ``host_call`` is a plain call again.  No card is needed: the
+    recorder's segment boundaries are stubbed out."""
+    x = torch.arange(6.0).reshape(3, 2)
+    calls = []
+
+    def fn(y):
+        calls.append(engine_mod._ACTIVE)
+        return 2 * y
+
+    assert engine_mod._ACTIVE is None
+    assert torch.equal(engine_mod.host_call(fn, x), 2 * x)
+    stub = _StubRecorder()
+    monkeypatch.setattr(engine_mod, "_ACTIVE", stub)
+    assert torch.equal(engine_mod.host_call(fn, x), 2 * x)
+    assert stub.steps == [fn]
+    stub.capturing = False      # a recorder that is not capturing
+    engine_mod.host_call(fn, x)
+    assert stub.steps == [fn]
+
+    # the real Recorder.host with its graph boundaries stubbed: one host
+    # node, its output a static copy, the nested call plain
+    rec = engine_mod.Recorder(SimpleNamespace(
+        stats=engine_mod.EngineStats()))
+    rec.capturing, rec._prog, rec._exec = True, [[]], [True]
+    monkeypatch.setattr(rec, "_end", lambda: None)
+    monkeypatch.setattr(rec, "_begin", lambda: None)
+    monkeypatch.setattr(engine_mod, "_ACTIVE", rec)
+
+    def outer(y):
+        return engine_mod.host_call(fn, y) + 1
+
+    calls.clear()
+    out = engine_mod.host_call(outer, x)
+    assert torch.equal(out, 2 * x + 1)
+    assert calls == [None]                  # nested: plain, no recorder
+    (node,) = rec._prog[0]
+    assert isinstance(node, engine_mod._Host) and node.fn is outer
+    assert node.outs[0] is out and node.args[0] is x
+    assert rec.engine.stats.host_steps == 1
+    assert engine_mod._ACTIVE is rec
+
+
+def test_host_steps_routed_through_host_call(monkeypatch, rng):
+    """A compiled solve on a Schur reduction with a native_lu A11 and an
+    ``inv_a`` the expansion applies: every A11 solve of an S apply and
+    every ``inv_a`` call reach ``host_call`` (the CPU runs them under a
+    stub recorder), and ``info.engine`` names both sources."""
+    n = 60
+    a = rng.uniform(-1, 1, (n, n)) * (rng.uniform(0, 1, (n, n)) < 0.2)
+    a = sp.csr_matrix(a - 3.0 * np.eye(n))
+    md = rng.uniform(0.5, 1.5, n)
+    md[rng.permutation(n)[:n // 3]] = 0.0
+    b = rng.uniform(-1, 1, (n, 2))
+    b[md == 0] = 0.0
+    red = rt.schur_reduce(a, sp.diags(md), b, a11_solver="native_lu",
+                          dtype=torch.float64, **CPU)
+    inv_a = red.sinv("native_lu")
+    applies = [0]
+    op = red.operator
+    fn = op.fn
+
+    def counted(x):
+        applies[0] += 1
+        return fn(x)
+
+    op.fn = counted
+    expansions = [0]
+    block = LyapunovSolver._expansion_block
+
+    def counted_block(self, *args):
+        expansions[0] += 1
+        return block(self, *args)
+
+    monkeypatch.setattr(LyapunovSolver, "_expansion_block", counted_block)
+    stub = _StubRecorder()
+    monkeypatch.setattr(engine_mod, "_ACTIVE", stub)
+    v, t, info = rt.solve(op, red.bs, red.ms, tol=1e-8, inv_a=inv_a,
+                          projection_method=2.2, compiled=True, **CPU)
+    assert info.status == 0
+    # one A11 solve per S apply (the initial space's and each Gram
+    # update's), and one for the initial space's inv_a(B), which the
+    # solver calls directly before any recording; sinv's own host_call
+    # inside an inv_a host step is plain, so it adds no step
+    a11 = [f for f in stub.steps if f is not inv_a]
+    assert len(a11) == applies[0] + 1 and applies[0] > info.iter
+    assert stub.steps.count(inv_a) == expansions[0] > 0
+    assert info.engine["host_step_sources"] == {
+        "A": "the A11 solve of native_lu", "inv_a": "the expansion's inv_a"}
 
 
 # ---------------------------------------------------------------- on the card

@@ -24,6 +24,8 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def test_import_pulls_in_no_jax():
+    """The package's modules and the ported examples (imported, not run)
+    load neither JAX nor the JAX package."""
     code = ("import sys, rails_tpu_torch, rails_tpu_torch.interop, "
             "rails_tpu_torch.models.problems, rails_tpu_torch._build, "
             "rails_tpu_torch.profile_solve, rails_tpu_torch.refine, "
@@ -33,7 +35,13 @@ def test_import_pulls_in_no_jax():
             "rails_tpu_torch.parallel.schur_dist, "
             "rails_tpu_torch.parallel.multihost, "
             "rails_tpu_torch.kernel_ablation, rails_tpu_torch.core.engine, "
-            "rails_tpu_torch.capture_audit\n"
+            "rails_tpu_torch.capture_audit, importlib.util\n"
+            "for name in ('continuation_sequence_torch', "
+            "'distributed_schur_torch'):\n"
+            "    spec = importlib.util.spec_from_file_location(\n"
+            "        name, f'examples/{name}.py')\n"
+            "    spec.loader.exec_module(\n"
+            "        importlib.util.module_from_spec(spec))\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'rails_tpu.')) or "
             "m == 'rails_tpu')\n"
