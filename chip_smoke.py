@@ -203,14 +203,39 @@ exits nonzero and never prints the last line):
 27. continuation_full_capacity - continuation_wide's eager steps with
               the state at full capacity, each step's iterations beside
               the eager (ladder) and compiled counts (phase 24).
+28. multiprocess - the row mesh across processes: this script started
+              again as worker processes (``--worker``), every one on
+              cuda:0 with backend gloo (NCCL refuses two ranks on one
+              card), each checked to exit 0.  First two one-process runs
+              of phase 15 with B scaled by 1 +- 1e-15: the iteration
+              count's spread under rounding (``MP_ITER_BAND``).  (a)
+              mesh_solve's problem (phase 15) on 2 processes (4 took
+              240 s) of one shard each: per rank the
+              iterations, status, wall, s per iteration, collectives and
+              host-staged bytes per iteration, kernel #3's launches (one
+              per A apply) and kernel #3 on the rank's shard, its halos
+              from the neighbouring ranks, against its plain version; on
+              rank 0 the gathered V's f64 true residual <= 2 tol; the
+              first 10 residual estimates within 1e-8 of phase 15's and
+              the count within 15% of it; the costs of one collective
+              (the backend's round, a device sync, the staged whole).
+              (b) the CLI's
+              --distributed --num-processes 2 on mesh_schur (b)'s DAE:
+              DistributedSchurOperator, iterations equal across ranks and
+              within 15% of phase 17 (b)'s, the eigenvalue table within
+              1e-6 of its leading eigenvalue, rank 0 alone writing V/T,
+              kernel #4's launches per rank.  (c) (a) over NCCL, one card
+              per rank, where the cards reach the rank count; else one
+              line saying why it was not run.
 
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  ``--only`` runs env, build and the named
-phases of 8-27 and stops there (no kernel table, no last line); a
+phases of 8-28 and stops there (no kernel table, no last line); a
 compiled phase then runs its eager counterpart itself.
 """
 
 import contextlib
+import dataclasses
 import gc
 import importlib
 import io
@@ -767,7 +792,7 @@ def count_applies(op):
 
 
 def run_solve(torch, rt, spmm, label, side, dtype, opts, rounded_inputs,
-              mesh=None, compiled=False):
+              mesh=None, compiled=False, b_scale=1.0):
     """Build the bench problem (DIA Laplacian, M = diag(U[0.5, 1.5]), B
     (n, 8) U[0, 1) from default_rng(0)) and solve it through the public
     entry points (on ``mesh`` when given: ``LyapunovSolver(mesh=...)``);
@@ -785,6 +810,7 @@ def run_solve(torch, rt, spmm, label, side, dtype, opts, rounded_inputs,
     if rounded_inputs:  # phase_scale builds M and B at float32
         md = md.astype(np.float32).astype(np.float64)
         b = b.astype(np.float32).astype(np.float64)
+    b = b * b_scale   # phase 28's rounding control
     aop = rt.sparse_from_scipy(lap, fmt="dia", dtype=dtype,
                                is_symmetric=True)
     mop = rt.DiagonalOperator(torch.from_numpy(md).to("cuda", dtype))
@@ -812,6 +838,7 @@ def run_solve(torch, rt, spmm, label, side, dtype, opts, rounded_inputs,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "dia_spmm_launches": launches, "mvps": info.mvps,
            "res_true_f64": res_true, "tol": opts["tol"],
+           "resvec_head": [float(r) for r in info.resvec[:RESVEC_HEAD]],
            "operator": type(solver.A).__name__, "a_applies": applies[0],
            "dia_spmm_halo_launches": halo_launches, "compiled": compiled}
     if compiled:
@@ -1810,6 +1837,7 @@ def run_mesh_phases(torch, rt, spmm, em, smi, gen, only, solve_f64):
                     "qr_route_project_solve_share": 0.955,
                     "phase_wall_s": time.perf_counter() - t0})
         emit(out)
+        EAGER["mesh_schur"] = out
     return launches, halo_err, halo_t
 
 
@@ -2352,6 +2380,447 @@ def run_slice_phases(torch, rt, em, wm, only, eager):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the row mesh across processes (parallel/comm.py, multihost.py)
+# ---------------------------------------------------------------------------
+# (a): processes at mesh_solve's n, one shard each.  4 took 240.7 s on
+# the H100 (770 iterations of 79 collectives, ~4 ms each with the
+# compute: four processes' gloo rounds and syncs on one shared card),
+# above the 150 s this phase allows itself, so 2 (PERF.md §6)
+MP_RANKS = 2
+MP_CLI_RANKS = 2      # (b): processes of the CLI's distributed Schur path
+MP_TIMEOUT_S = 600    # a worker's limit; a collective's own limit is 300 s
+# The iteration count moves with the rounding of the row sums: scaling
+# mesh_solve's B by 1 +- 1e-15 moves the one-process count from 742 to
+# 718 and 775, and the capacity ladder's padding moves it to 811
+# (PERF.md §6).  So a run whose sums round otherwise (each rank sums its
+# rows, then the ranks' partials) is held to the one-process run's
+# residual history over its first RESVEC_HEAD iterations, where the
+# trajectories have not yet parted, to MP_HISTORY_RTOL, and its count to
+# within MP_ITER_BAND of the one-process count (the spread seen, -3.2% to
+# +9.3%, with room); the spread is measured again in every run
+# (``rounding_spread``).
+RESVEC_HEAD = 10
+MP_HISTORY_RTOL = 1e-8
+MP_ITER_BAND = 0.15
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def collective_costs(torch, comm, reps=200):
+    """Mean µs of what one row reduction of the solve costs, on this
+    rank: a small host tensor's allgather through the backend alone, a
+    device sync after a small kernel alone, and the whole staged
+    ``RowComm.allreduce`` of a small device tensor (the last two only on
+    a card)."""
+    from rails_tpu_torch.parallel.comm import RowComm
+
+    dev = comm.device
+    host = RowComm(comm.group, comm.rank, comm.world, "cpu", comm.backend)
+    x = torch.ones(200, dtype=torch.float64)
+    xd = x.to(dev)
+    cases = {}
+    if comm.backend == "gloo":
+        cases["allgather_host_tensor"] = lambda: host.allreduce(x)
+    if dev.type == "cuda":
+        cases["sync_after_small_kernel"] = lambda: (xd * 2).sum().item()
+        cases["staged_allreduce"] = lambda: comm.allreduce(xd).sum().item()
+    out = {}
+    saved = dataclasses.replace(comm.stats)
+    for name, fn in cases.items():
+        for _ in range(10):
+            fn()
+        comm.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+    comm.stats = saved
+    return out
+
+
+def mp_solve_worker(coordinator, pid, nproc, out_path, device, backend,
+                    side=256):
+    """Phase 28 (a) in one worker process: mesh_solve's problem (phase 15)
+    on the multi-process mesh, this rank one shard of it.  Counts reset
+    just before ``solve()`` and read just after; then kernel #3 on this
+    rank's shard, its halos from the neighbouring ranks, against its plain
+    version; rank 0 holds the gathered V's f64 true residual.  Writes
+    this rank's line as JSON to ``out_path``."""
+    import torch
+
+    import rails_tpu_torch as rt
+    from rails_tpu_torch.models.problems import laplacian2_sparse
+    from rails_tpu_torch.parallel import multihost
+    from rails_tpu_torch.parallel.halo_spmm import process_halos
+    from rails_tpu_torch.sparse import spmm
+
+    comm = multihost.initialize(coordinator, nproc, pid, device=device,
+                                backend=backend, timeout_s=300)
+    mesh = rt.make_mesh()
+    dev = comm.device
+    f64 = torch.float64
+    n = side * side
+    rng = np.random.default_rng(0)
+    lap = laplacian2_sparse(side)
+    # phase_scale builds M and B at float32 (run_solve's rounded inputs)
+    md = rng.uniform(0.5, 1.5, n).astype(np.float32).astype(np.float64)
+    b = rng.uniform(0, 1, (n, 8)).astype(np.float32).astype(np.float64)
+    aop = rt.sparse_from_scipy(lap, fmt="dia", dtype=f64, is_symmetric=True,
+                               device=dev)
+    mop = rt.DiagonalOperator(torch.from_numpy(md).to(dev, f64), device=dev)
+    solver = rt.LyapunovSolver(aop, b, mop, dtype=f64, mesh=mesh, **OPTS64)
+    applies = count_applies(solver.A)
+    walls = []
+    sync(torch, dev)
+    calls0, bytes0, staged0 = (comm.stats.calls, comm.stats.bytes,
+                               comm.stats.staged_bytes)
+    spmm.dia_spmm.launches = 0
+    spmm.dia_spmm_halo.launches = 0
+    t0 = time.perf_counter()
+    v, t, info = solver.solve(
+        progress=lambda it, wall, res: walls.append(wall))
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    halo_launches = spmm.dia_spmm_halo.launches
+    dia_launches = spmm.dia_spmm.launches
+    iters = max(info.iter, 1)
+    calls = comm.stats.calls - calls0
+    sent = comm.stats.bytes - bytes0
+    staged = comm.stats.staged_bytes - staged0
+    half = len(walls) // 2
+    per_it = (walls[-1] - walls[half]) / max(1, len(walls) - 1 - half)
+    # kernel #3 on this rank's shard: the solver's own payload, a random
+    # x of its rows, the halos from the neighbouring ranks (zeros at the
+    # mesh's ends)
+    shard = solver.A._fwd_shards[0]
+    gen = torch.Generator(dev).manual_seed(100 + pid)
+    x = torch.rand((shard.data.shape[1], 8), generator=gen, dtype=f64,
+                   device=dev)
+    span = max(abs(o) for o in shard.offsets)
+    hl, hh = process_halos(x, span, span, mesh)
+    zeros = torch.zeros((span, 8), dtype=f64, device=dev)
+    hl = zeros if hl is None else hl
+    hh = zeros if hh is None else hh
+    y = spmm.dia_spmm_halo(shard.data, shard.offsets_t, x, hl, hh,
+                           offsets=shard.offsets)
+    sync(torch, dev)
+    ref = spmm.dia_spmm_halo_reference(shard.data, shard.offsets_t, x, hl,
+                                       hh)
+    err = (y - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    vfull = comm.gather_rows(v)
+    costs = collective_costs(torch, comm)
+    out = {"rank": pid, "processes": nproc, "backend": comm.backend,
+           "device": str(dev), "shards": mesh.size,
+           "local_rows": int(v.shape[0]), "iters": info.iter,
+           "status": info.status, "res": info.res, "rank_v": int(v.shape[1]),
+           "wall_s": wall, "s_per_iter": wall / iters,
+           "s_per_iter_second_half": per_it,
+           "collectives": calls, "collectives_per_iter": calls / iters,
+           "bytes_sent_per_iter": sent / iters,
+           "host_staged_bytes_per_iter": staged / iters,
+           "a_applies": applies[0], "dia_spmm_halo_launches": halo_launches,
+           "dia_spmm_launches": dia_launches,
+           "halo_launches_per_apply": halo_launches / max(applies[0], 1),
+           "halo_kernel_max_abs_err": err, "halo_kernel_max_abs_y": scale,
+           "halo_kernel_ok": err <= TOL["float64"] * scale,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev)
+           if dev.type == "cuda" else None, "tol": OPTS64["tol"],
+           "resvec_head": [float(r) for r in info.resvec[:RESVEC_HEAD]],
+           "collective_costs_us": costs}
+    if vfull is not None:
+        out["res_true_f64"] = true_residual(lap, md, b, vfull, t, rng)
+    multihost.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def mp_cli_worker(coordinator, pid, nproc, out_path, directory):
+    """Phase 28 (b) in one worker process: ``rails_tpu_torch.cli.main``
+    with ``--distributed --num-processes`` on the DAE in ``directory``
+    (the backend from ``RAILS_DIST_BACKEND``); kernel #4's launches
+    counted from just before ``main`` to just after."""
+    import torch
+
+    from rails_tpu_torch import cli
+    from rails_tpu_torch.sparse import ell_spmm as em
+
+    buf = io.StringIO()
+    em.ell_spmm.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([directory, "--x64", "--params",
+                       os.path.join(directory, "params.json"),
+                       "--distributed", "--coordinator", coordinator,
+                       "--num-processes", str(nproc), "--process-id",
+                       str(pid)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = em.ell_spmm.launches
+    text = buf.getvalue()
+    mt = re.search(r"Solver (converged|did not converge) in (\d+) "
+                   r"iterations, relative residual (\S+), space size "
+                   r"(\d+)", text)
+    lines = text.splitlines()
+    head = next(i for i, ln in enumerate(lines) if "eigenvalue/trace" in ln)
+    table = []
+    for ln in lines[head + 1:]:
+        parts = ln.split()
+        if len(parts) != 2:
+            break
+        table.append(float(parts[0]))
+
+    def grab(pattern):
+        mt2 = re.search(pattern, text)
+        return mt2.group(1) if mt2 else None
+
+    out = {"rank": pid, "rc": rc, "converged": mt.group(1) == "converged",
+           "iters": int(mt.group(2)), "res": float(mt.group(3)),
+           "rank_v": int(mt.group(4)), "wall_s": wall,
+           "eig_table": table, "ell_spmm_launches": launches,
+           "distributed_run": grab(r"(Distributed run: [^\n]*)"),
+           "distributed_operator": grab(r"Distributed operator: (\w+)"),
+           "collectives": grab(r"(Collectives: [^\n]*)"),
+           "wrote_vt": "Wrote V.mtx and T.mtx" in text}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def worker_main(argv):
+    """``chip_smoke.py --worker solve|cli COORDINATOR PID NPROC OUT ...``:
+    one process of phase 28 (started by ``run_multiprocess``)."""
+    kind, coordinator, pid, nproc, out_path, *rest = argv
+    if kind == "solve":
+        device, backend = rest
+        mp_solve_worker(coordinator, int(pid), int(nproc), out_path,
+                        None if device == "auto" else device, backend)
+    elif kind == "cli":
+        mp_cli_worker(coordinator, int(pid), int(nproc), out_path, rest[0])
+    else:
+        raise SystemExit(f"unknown worker {kind!r}")
+
+
+def start_workers(kind, nproc, out_dir, extra, env_extra=None,
+                  timeout=MP_TIMEOUT_S):
+    """Run ``nproc`` workers of this script and wait for all; raises
+    unless every one exits 0 (any left are killed).  Returns their JSON
+    lines."""
+    coordinator = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ)
+    env.update({"OMP_NUM_THREADS": "1", **(env_extra or {})})
+    here = os.path.abspath(__file__)
+    paths = [os.path.join(out_dir, f"{kind}.r{pid}.json")
+             for pid in range(nproc)]
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--worker", kind, coordinator, str(pid),
+         str(nproc), paths[pid], *extra], cwd=os.path.dirname(here),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for pid in range(nproc)]
+    results = []
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+            results.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(pid, rc, out[-1500:], err[-3000:])
+           for pid, (rc, out, err) in enumerate(results) if rc != 0]
+    if bad:
+        raise AssertionError(f"multiprocess: {kind} workers failed "
+                             f"(rank, rc, stdout, stderr): {bad}")
+    lines = []
+    for path in paths:
+        with open(path) as f:
+            lines.append(json.load(f))
+    return lines
+
+
+def mp_solve_summary(ranks, ref, label):
+    """Phase 28 (a)'s line from its ranks' lines, held against phase 15's
+    eager run ``ref``."""
+    r0 = ranks[0]
+    it = {r["iters"] for r in ranks}
+    head = np.asarray(ref["resvec_head"])
+    mine = np.asarray(r0["resvec_head"])[:head.size]
+    out = {"case": label, "processes": r0["processes"],
+           "backend": r0["backend"], "device": r0["device"],
+           "shards": r0["shards"], "ranks": ranks, "iters": r0["iters"],
+           "iters_equal_across_ranks": len(it) == 1,
+           "resvec_head_max_rel_diff": float(
+               np.max(np.abs(mine - head) / np.abs(head)))
+           if mine.size == head.size else None,
+           "res_true_f64": r0.get("res_true_f64"), "tol": r0["tol"],
+           "wall_s": max(r["wall_s"] for r in ranks),
+           "s_per_iter": max(r["s_per_iter"] for r in ranks),
+           "collectives_per_iter": r0["collectives_per_iter"],
+           "host_staged_bytes_per_iter": r0["host_staged_bytes_per_iter"],
+           "mesh_solve_iters": ref["iters"],
+           "mesh_solve_wall_s": ref["wall_s"]}
+    out["wall_over_mesh_solve"] = out["wall_s"] / ref["wall_s"]
+    faults = []
+    if len(it) != 1 or any(r["status"] != 0 for r in ranks):
+        faults.append("iterations or status differ across ranks, or not "
+                      "converged")
+    if out["resvec_head_max_rel_diff"] is None or \
+            out["resvec_head_max_rel_diff"] > MP_HISTORY_RTOL:
+        faults.append(f"the first {RESVEC_HEAD} residual estimates differ "
+                      f"from mesh_solve's by more than {MP_HISTORY_RTOL}")
+    if abs(out["iters"] - ref["iters"]) > MP_ITER_BAND * ref["iters"]:
+        faults.append(f"iterations more than {MP_ITER_BAND:.0%} from "
+                      f"mesh_solve's")
+    if out["res_true_f64"] is None or out["res_true_f64"] > 2 * out["tol"]:
+        faults.append("true residual above 2 tol")
+    for r in ranks:
+        if r["dia_spmm_launches"] != 0 or r["a_applies"] <= 0 or \
+                r["dia_spmm_halo_launches"] != r["a_applies"]:
+            faults.append(f"rank {r['rank']}: A's applies did not go "
+                          f"through one halo-kernel launch each")
+        if not r["halo_kernel_ok"]:
+            faults.append(f"rank {r['rank']}: kernel #3 disagrees with its "
+                          f"plain version on the rank's shard")
+    if faults:
+        raise AssertionError(f"multiprocess {label}: {faults}: {out}")
+    return out
+
+
+def run_multiprocess(torch, rt, spmm, em, only, eager):
+    """Phase 28: (a) mesh_solve on MP_RANKS processes of cuda:0 over gloo;
+    (b) the CLI's distributed Schur path on MP_CLI_RANKS processes; (c)
+    (a) over NCCL where the cards reach the rank count.  Returns each
+    rank's launches of kernels #3 (in (a)) and #4 (in (b)), or None when
+    the phase is skipped."""
+    if not (only is None or "multiprocess" in only):
+        return None
+    import scipy.sparse as sp
+
+    from rails_tpu_torch import io as rio
+
+    t_phase = time.perf_counter()
+    mesh = rt.make_mesh(devices=["cuda:0"] * MESH_ND)
+    ref = eager.get("mesh_solve")
+    if ref is None:   # phase 15 was skipped: run it here
+        ref, _ = run_solve(torch, rt, spmm, "mesh_solve", 256,
+                           torch.float64, OPTS64, True, mesh=mesh)
+    # the count's spread under rounding-level changes of the one-process
+    # run's input (see MP_ITER_BAND)
+    spread = {"b_scale": [1.0], "iters": [ref["iters"]]}
+    for scale in (1.0 + 1e-15, 1.0 - 1e-15):
+        o, _ = run_solve(torch, rt, spmm, "mesh_solve_b_scaled", 256,
+                         torch.float64, OPTS64, True, mesh=mesh,
+                         b_scale=scale)
+        spread["b_scale"].append(scale)
+        spread["iters"].append(o["iters"])
+    torch.cuda.empty_cache()
+    cases = []
+    note = ("all ranks on cuda:0 over gloo (NCCL refuses two ranks on one "
+            "card): CUDA tensors staged through pinned host buffers")
+    with tempfile.TemporaryDirectory() as d:
+        # ---- (a)
+        t0 = time.perf_counter()
+        ranks = start_workers("solve", MP_RANKS, d, ["cuda:0", "gloo"])
+        case_a = mp_solve_summary(ranks, ref, "a: mesh_solve, gloo")
+        case_a["phase_wall_s"] = time.perf_counter() - t0
+        cases.append(case_a)
+        # ---- (b)
+        t0 = time.perf_counter()
+        ref_b = eager.get("mesh_schur")
+        if ref_b is None:   # phase 17 was skipped: its (b) here
+            ref_b = run_cli_schur(torch, spmm, em, 1e-4, side=MESH_CLI_SIDE,
+                                  extra=("--distributed",),
+                                  label="mesh_schur")
+        a, md, b = laplacian_dae(MESH_CLI_SIDE)
+        prob = os.path.join(d, "dae")
+        os.makedirs(prob)
+        rio.write_matrix_market(os.path.join(prob, "A.mtx"), a)
+        rio.write_matrix_market(os.path.join(prob, "M.mtx"),
+                                sp.diags(md).tocsr())
+        rio.write_matrix_market(os.path.join(prob, "B.mtx"),
+                                sp.csr_matrix(b))
+        with open(os.path.join(prob, "params.json"), "w") as f:
+            json.dump({"Lyapunov Solver": {
+                "Tolerance": 1e-4, "Maximum iterations": 3000,
+                "Expand size": 8, "Restart size": 160,
+                "Reduced size": 80}}, f)
+        ranks_b = start_workers("cli", MP_CLI_RANKS, d, [prob],
+                                {"RAILS_DIST_BACKEND": "gloo"})
+        v = rio.read_matrix_market(os.path.join(prob, "V.mtx"))
+        t = rio.read_matrix_market(os.path.join(prob, "T.mtx"))
+        res_true, _ = host_schur(a, md, b, v, t)
+        tab = np.asarray(ranks_b[0]["eig_table"])
+        tab1 = np.asarray([row[0] for row in ref_b["eig_table"]])
+        case_b = {"case": "b: CLI --distributed, DistributedSchurOperator",
+                  "processes": MP_CLI_RANKS, "side": MESH_CLI_SIDE,
+                  "ranks": ranks_b, "iters": ranks_b[0]["iters"],
+                  "mesh_schur_iters": ref_b["iters"],
+                  "res_true_f64": res_true, "tol": 1e-4,
+                  "eig_table_max_rel_diff": float(
+                      np.abs(tab - tab1).max() / abs(tab1[0]))
+                  if tab.shape == tab1.shape else None,
+                  "wall_s": max(r["wall_s"] for r in ranks_b),
+                  "mesh_schur_wall_s": ref_b["wall_s"],
+                  "phase_wall_s": time.perf_counter() - t0}
+        faults = []
+        if any(r["distributed_operator"] != "DistributedSchurOperator"
+               or not r["converged"] for r in ranks_b):
+            faults.append("not a converged DistributedSchurOperator run")
+        if len({r["iters"] for r in ranks_b}) != 1 or abs(
+                case_b["iters"] - ref_b["iters"]) > \
+                MP_ITER_BAND * ref_b["iters"]:
+            faults.append(f"iterations differ across ranks or by more than "
+                          f"{MP_ITER_BAND:.0%} from mesh_schur's")
+        if case_b["eig_table_max_rel_diff"] is None or \
+                case_b["eig_table_max_rel_diff"] > 1e-6 or any(
+                    r["eig_table"] != ranks_b[0]["eig_table"]
+                    for r in ranks_b):
+            faults.append("eigenvalue tables differ")
+        if res_true > 2e-4 or [r["wrote_vt"] for r in ranks_b] != \
+                [True] + [False] * (MP_CLI_RANKS - 1):
+            faults.append("true residual above 2 tol, or not rank 0 alone "
+                          "wrote V/T")
+        if any(r["ell_spmm_launches"] <= 0 for r in ranks_b):
+            faults.append("a rank never launched ell_spmm")
+        if faults:
+            raise AssertionError(f"multiprocess (b): {faults}: {case_b}")
+        cases.append(case_b)
+        # ---- (c)
+        cards = torch.cuda.device_count()
+        if cards >= MP_RANKS:
+            t0 = time.perf_counter()
+            ranks_c = start_workers("solve", MP_RANKS, d, ["auto", "nccl"])
+            case_c = mp_solve_summary(ranks_c, ref, "c: mesh_solve, nccl")
+            case_c["phase_wall_s"] = time.perf_counter() - t0
+            cases.append(case_c)
+            c_note = None
+        else:
+            c_note = (f"(c) not run: {cards} card(s) for {MP_RANKS} ranks; "
+                      f"NCCL needs a card per rank")
+            print(c_note, flush=True)
+    emit({"phase": "multiprocess", "note": note, "c_not_run": c_note,
+          "rounding_spread": spread, "iter_band": MP_ITER_BAND,
+          "cases": cases, "wall_s": time.perf_counter() - t_phase})
+    return {"dia_spmm_halo": [r["dia_spmm_halo_launches"] for r in ranks],
+            "ell_spmm": [r["ell_spmm_launches"] for r in ranks_b]}
+
+
 def wall_ms(torch, fn, reps):
     """Median wall ms of ``reps`` calls of ``fn``, each ended by a
     synchronisation of the card (for work that crosses to the host and
@@ -2766,7 +3235,7 @@ NEW_PHASES = ("compare_wide", "timing_wide", "refined_acc", "refined_scale",
               "mesh_solve", "mesh_ell", "mesh_schur", "schur_lapack",
               "schur_native", "hub", "compiled_solve", "compiled_mesh",
               "compiled_refined", "compiled_continuation", "compiled_schur",
-              "examples", "continuation_full_capacity")
+              "examples", "continuation_full_capacity", "multiprocess")
 
 
 def parse_only(argv):
@@ -2785,6 +3254,9 @@ def parse_only(argv):
 
 
 def main():
+    if sys.argv[1:2] == ["--worker"]:   # one process of phase 28
+        worker_main(sys.argv[2:])
+        return
     t_start = time.perf_counter()
     only = parse_only(sys.argv[1:])
     import torch
@@ -2836,6 +3308,7 @@ def main():
     run_compiled_phases(torch, rt, spmm, em, wm, refine_mod, gen, only,
                         EAGER)
     schur_launches = run_slice_phases(torch, rt, em, wm, only, EAGER)
+    mp_launches = run_multiprocess(torch, rt, spmm, em, only, EAGER)
     if only is not None:
         return
 
@@ -2854,12 +3327,15 @@ def main():
                   "rails_tpu/sparse/ell_spmm.py:344", *earlier["ell"])
     ell_row["hub_solve_launches"] = hub_launches
     ell_row["compiled_schur_launches"] = schur_launches
+    ell_row["multiprocess_rank_launches"] = mp_launches["ell_spmm"]
+    halo_row = row("dia_spmm_halo", "rails_tpu_torch/csrc/dia_spmm_halo.cu",
+                   "rails_tpu/sparse/spmm.py:414", *halo)
+    halo_row["multiprocess_rank_launches"] = mp_launches["dia_spmm_halo"]
     emit({"kernels": [
         row("dia_spmm", "rails_tpu_torch/csrc/dia_spmm.cu",
             "rails_tpu/sparse/spmm.py:75", *earlier["dia"]),
-        row("dia_spmm_halo", "rails_tpu_torch/csrc/dia_spmm_halo.cu",
-            "rails_tpu/sparse/spmm.py:414", *halo),
-        ell_row, wide_row], "total_wall_s": time.perf_counter() - t_start})
+        halo_row, ell_row, wide_row],
+        "total_wall_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -21,15 +21,21 @@ profiler's table (main.cpp:172-173).
 ``--platform``; ``--x64`` solves in float64 instead of float32.
 
 ``--distributed`` runs the row-sharded mesh path, as the JAX package's
-does (its multi-process production posture) but in one process:
-``make_mesh`` over the visible devices of ``--device`` (every CUDA card;
-the one CPU device), ``pad_system`` to the mesh size, then for a
-singular M the distributed Schur operator (``parallel/schur_dist.py``),
-otherwise the direct path with ``--fmt`` and a diagonal M (a
-non-diagonal M ends the run), whose eigenvalue phase runs ``eigs`` over
-the solution as a ``LowRankOperator`` on the mesh.  More than one
-process (``--num-processes`` above 1) and a mesh over more than one
-distinct card raise ``NotImplementedError`` (ROADMAP Queue 1 item 7).
+does: ``pad_system`` to the mesh size, then for a singular M the
+distributed Schur operator (``parallel/schur_dist.py``), otherwise the
+direct path with ``--fmt`` and a diagonal M (a non-diagonal M ends the
+run), whose eigenvalue phase runs ``eigs`` over the solution as a
+``LowRankOperator`` on the mesh.  With one process the mesh is
+``make_mesh`` over the visible devices of ``--device`` (the one CPU
+device; a machine's cards would be distinct devices, which one process
+does not drive: run one process per card).  With ``--num-processes N``
+(above 1), ``--process-id r`` and ``--coordinator host:port`` (defaults
+``$RAILS_NUM_PROCESSES``, ``$RAILS_PROCESS_ID``, ``$RAILS_COORDINATOR``)
+each of N processes joins the group (``multihost.initialize``: rank r on
+``cuda:{r % cards}``, or the CPU with ``--device cpu``;
+``RAILS_DIST_BACKEND=gloo`` where ranks share a card) and holds its
+rows of B, V and the operators; V is gathered for V.mtx and T.mtx, which
+rank 0 alone writes, and every rank prints the eigenvalue table.
 """
 
 from __future__ import annotations
@@ -93,17 +99,23 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     dtype = torch.float64 if args.x64 else torch.float32
-    mesh = None
+    mesh = comm = None
     if args.distributed:
         from rails_tpu_torch.parallel import multihost
         from rails_tpu_torch.parallel.mesh import make_mesh
 
-        multihost.initialize(args.coordinator, args.num_processes,
-                             args.process_id)
-        mesh = make_mesh() if device.type == "cuda" \
-            else make_mesh(devices=[device])
-        print(f"Distributed run: {multihost.process_count()} processes, "
-              f"{mesh.size} global devices")
+        comm = multihost.initialize(args.coordinator, args.num_processes,
+                                    args.process_id, device=args.device)
+        if comm is not None:
+            device = comm.device
+            mesh = make_mesh()
+            print(f"Distributed run: {comm.world} processes, {mesh.size} "
+                  f"shards, backend {comm.backend}, device {device}")
+        else:
+            mesh = make_mesh() if device.type == "cuda" \
+                else make_mesh(devices=[device])
+            print(f"Distributed run: {multihost.process_count()} "
+                  f"processes, {mesh.size} global devices")
     reset_profiles()
     enable_profiling()
     try:
@@ -192,8 +204,12 @@ def main(argv=None) -> int:
         if not args.only_eigenvalues:
             print("Creating solver")
             if mesh is not None:
+                # each process places its own rows of B (the reference's
+                # distributed MatrixMarket load, main.cpp:66-68)
+                r0, r1 = mesh.local_range(bs.shape[0])
                 b_arr = multihost.make_global_array(
-                    torch.as_tensor(bs, dtype=dtype, device=device), mesh)
+                    torch.as_tensor(bs, dtype=dtype, device=device)[r0:r1],
+                    mesh)
                 solver = rails_tpu_torch.LyapunovSolver(
                     aop, b_arr, msop, options=opts, mesh=mesh)
                 print(f"Distributed operator: {type(solver.A).__name__}")
@@ -213,9 +229,17 @@ def main(argv=None) -> int:
                   f"relative residual {info.res:.3e}, space size "
                   f"{v.shape[1]}")
             v_dev = v
+            if comm is not None:
+                # this process's rows -> the whole V on every process (the
+                # JAX package's process_allgather): the checkpoint and the
+                # Schur path's full-space operator read it
+                v = multihost.allgather_rows(v, mesh)
             with timer("Driver", "checkpoint"):
-                rio.write_matrix_market(v_path, v)
-                rio.write_matrix_market(t_path, t)
+                if comm is None or comm.rank == 0:
+                    rio.write_matrix_market(v_path, v)
+                    rio.write_matrix_market(t_path, t)
+                    if comm is not None:
+                        print("Wrote V.mtx and T.mtx")
         else:
             print("Reloading V.mtx / T.mtx")
             v = torch.as_tensor(rio.read_matrix_market(v_path),
@@ -234,7 +258,8 @@ def main(argv=None) -> int:
                 # the distributed direct path: X = (V T) V' over the
                 # solver's V, with eigs on the mesh
                 sop = rails_tpu_torch.LowRankOperator(v_dev @ t, v_dev,
-                                                      device=device)
+                                                      device=device,
+                                                      comm=comm)
                 eig_mesh = mesh
             elif red is None:
                 # the direct path with V reloaded from disk: X = V T V'
@@ -269,6 +294,11 @@ def main(argv=None) -> int:
         save_profiles()
     finally:
         disable_profiling()
+    if comm is not None:
+        st = comm.stats
+        print(f"Collectives: {st.calls} calls, {st.bytes} bytes sent, "
+              f"{st.staged_bytes} bytes staged through the host")
+        multihost.shutdown()
     return 0
 
 

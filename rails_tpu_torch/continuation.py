@@ -50,7 +50,11 @@ class ContinuationSolver:
     iteration against the new Jacobian, with no new capture.  The cold
     step and the warm steps differ in ``restart_upon_start``, so they
     hold one engine each.  ``mesh``: every step's solver runs
-    row-sharded on it (``LyapunovSolver(mesh=...)``)."""
+    row-sharded on it (``LyapunovSolver(mesh=...)``); on a multi-process
+    mesh the carried basis is this process's rows, rotated by T's
+    eigenvectors, which are the same on every process (T is replicated,
+    so ``_truncate_basis`` reduces nothing over the rows), and ``save``
+    writes the whole basis from rank 0."""
 
     def __init__(self, b, m=None, options: Optional[SolverOptions] = None,
                  mesh=None, *, device=None, draws=None,
@@ -111,7 +115,12 @@ class ContinuationSolver:
             raise ValueError("no step has completed; nothing to save")
         from rails_tpu_torch.io import save_restart_data
 
-        save_restart_data(path, {"V": self._prev_space})
+        v = self._prev_space
+        if self.mesh is not None and self.mesh.comm is not None:
+            v = self.mesh.comm.allgather_rows(v)
+            if self.mesh.comm.rank != 0:
+                return
+        save_restart_data(path, {"V": v})
 
     def load(self, path: str) -> None:
         """Resume from a state written by ``save``: the next ``step``

@@ -32,6 +32,20 @@ error-free transforms of ``utils/compensated.py``, as the JAX package
 does: the Gram blocks, residual applies and orthogonalisation products
 through ``gram2``, the Lanczos and per-column norms through ``dot2``.
 
+On a multi-process mesh (``mesh.comm``, ``parallel/multihost.py``) each
+process holds its own rows of V, AV, MV, B and the Lanczos vectors, and
+every reduction over m - the Gram blocks, B'x, the residual apply's
+products, the Lanczos scalars and norms, the orthogonalisation - is a
+local product reduced over the processes (``_tdot``, ``_vdot``,
+``_col_norm``, ``_b_rmatmat``, ``parallel/comm.py``'s ``psum`` and
+``row_norm``, and ``_Sums``, which packs the reductions that read one
+point of the iteration into one collective): GSPMD's psums in the JAX
+package.  The
+k-sized state (T, the Gram blocks) and every decision of the host loop
+are the same bits on every process.  The random draws are the whole
+(m, ...) draws, cut to this process's rows, so N processes draw what one
+draws.
+
 Random numbers: the solver draws twice per kind of use - the initial
 space (``"init_uniform"``, U[0, 1) mapped to U[-1, 1)) and each Lanczos
 start (``"lanczos_normal"``).  ``LyapunovSolver(draws=...)`` replaces the
@@ -60,8 +74,10 @@ from rails_tpu_torch.core.options import (
 from rails_tpu_torch.linalg import dense_lyap
 from rails_tpu_torch.operators import (
     DenseOperator, LinearOperator, as_operator, operator_norm2)
+from rails_tpu_torch.parallel.comm import psum, row_norm
 from rails_tpu_torch.timer import timer
-from rails_tpu_torch.utils.compensated import dot2, gram2
+from rails_tpu_torch.utils.compensated import (
+    dot2, dot2_pair, gram2, gram2_pair, rank_pair_sum)
 from rails_tpu_torch.utils.device import as_tensor, resolve_device
 from rails_tpu_torch.utils.dtypes import full_precision
 
@@ -159,7 +175,10 @@ class LyapunovSolver:
     operator B go through ``parallel.sharded.shard_operator`` with the
     ``spmm`` strategy, so a DIA, ELL or HYB operator applies through the
     explicit-halo operators; the solve runs on the mesh's device
-    (``device``, when given, must be that device).
+    (``device``, when given, must be that device).  On a multi-process
+    mesh B (the whole array or this rank's slab), ``space``,
+    ``restart_data`` and ``nullspace`` may be given whole or as this
+    process's rows, and ``solve()`` returns this process's rows of V.
     ``engine_cache``: optional dict shared between solvers (the
     continuation driver passes one across its steps).  ``compiled=True``
     keeps its recorded iterations there under ``_engine_key``: every
@@ -179,6 +198,7 @@ class LyapunovSolver:
         opt = self.options
         self._engine_cache = {} if engine_cache is None else engine_cache
         self.mesh = mesh
+        self.comm = None if mesh is None else mesh.comm
         if mesh is not None:
             from rails_tpu_torch.parallel.mesh import canonical_device
 
@@ -250,7 +270,8 @@ class LyapunovSolver:
             if self._b_is_operator:
                 self.B = shard_operator(self.B, mesh, spmm=spmm)
             else:
-                self._b_array = shard_array_rows(self._b_array, mesh)
+                self._b_array = shard_array_rows(self._b_array, mesh,
+                                                 m=self.A.shape[0])
 
     def _resolve_dtype(self, b) -> torch.dtype:
         if self.options.dtype is not None:
@@ -354,6 +375,11 @@ class LyapunovSolver:
         ``while_loop`` engine): on the card recorded once into CUDA
         graphs and replayed, on the CPU run eagerly; the host reads the
         state once per chunk (``core/engine.py``)."""
+        if compiled and self.comm is not None:
+            raise NotImplementedError(
+                "solve(compiled=True) across processes is not ported: "
+                "ROADMAP Queue 1 item 8 (the collectives inside the "
+                "recorded iteration); run it eagerly (compiled=False)")
         if compiled:
             v, t, info = self._solve_compiled(progress)
         else:
@@ -725,18 +751,31 @@ class LyapunovSolver:
     # helpers
     # ------------------------------------------------------------------
     def _draw(self, ctx, kind: str, shape) -> torch.Tensor:
+        """The (m, ...) draw of ``kind``, this process's rows of it."""
         if self.draws is not None:
             x = self.draws(kind, tuple(shape), self.dtype, self.device)
             x = as_tensor(x, self.device, self.dtype)
             if tuple(x.shape) != tuple(shape):
                 raise ValueError(f"draws({kind!r}) gave shape "
                                  f"{tuple(x.shape)}, expected {shape}")
-            return x
+            return self._own_rows(x)
         if kind == "init_uniform":
-            return torch.rand(shape, generator=ctx.gen, dtype=self.dtype,
-                              device=self.device)
-        return torch.randn(shape, generator=ctx.gen, dtype=self.dtype,
+            x = torch.rand(shape, generator=ctx.gen, dtype=self.dtype,
                            device=self.device)
+        else:
+            x = torch.randn(shape, generator=ctx.gen, dtype=self.dtype,
+                            device=self.device)
+        return self._own_rows(x)
+
+    def _own_rows(self, x):
+        """This process's rows of an m-row tensor given whole or as this
+        process's rows (the tensor itself with one process)."""
+        if self.comm is None or x is None:
+            return x
+        from rails_tpu_torch.parallel.sharded import shard_array_rows
+
+        return shard_array_rows(x, self.mesh, m=self.A.shape[0])
+
 
     def _p(self) -> int:
         return self.B.shape[1] if self._b_is_operator \
@@ -750,7 +789,7 @@ class LyapunovSolver:
     def _b_rmatmat(self, x):
         if self._b_is_operator:
             return self.B.rmatmat(x)
-        return self._b_array.T @ x
+        return psum(self.comm, self._b_array.T @ x)
 
     def _b_norm2sq(self) -> torch.Tensor:
         """||B||_2^2 = ||B'B||_2, the residual normalization r0 (MATLAB
@@ -763,7 +802,7 @@ class LyapunovSolver:
                 bb = self.B.rmatmat(self.B.matmat(torch.eye(
                     p, dtype=self.dtype, device=self.device)))
             else:
-                bb = self._b_array.T @ self._b_array
+                bb = psum(self.comm, self._b_array.T @ self._b_array)
             lam, u = torch.linalg.eigh(0.5 * (bb + bb.T))
             half = (u * torch.sqrt(torch.clamp(lam, min=0.0))[None, :]) @ u.T
             core = half @ self.b_sign @ half
@@ -772,7 +811,7 @@ class LyapunovSolver:
         if self._b_is_operator:
             return operator_norm2(self.B, dtype=self.dtype,
                                   device=self.device) ** 2
-        bb = self._b_array.T @ self._b_array
+        bb = psum(self.comm, self._b_array.T @ self._b_array)
         return torch.linalg.eigvalsh(bb)[-1]
 
     def _init_space(self, m, ctx) -> torch.Tensor:
@@ -787,14 +826,16 @@ class LyapunovSolver:
                 if field not in rd:
                     raise InvalidOption(
                         "restart_data does not contain valid restart data")
-            v0 = as_tensor(rd["V"], dev, dtype)
+            v0 = self._own_rows(as_tensor(rd["V"], dev, dtype))
         elif opt.space is not None:
             v0 = as_tensor(opt.space, dev, dtype)
             if v0.ndim == 1:
                 v0 = v0[:, None]
-            if v0.shape[0] != m:
+            if v0.shape[0] != m and (self.comm is None or v0.shape[0]
+                                     * self.comm.world != m):
                 raise InvalidOption(
                     "opts.space should have the same row dimension as A")
+            v0 = self._own_rows(v0)
         if v0 is None:
             v0 = (self._draw(ctx, "init_uniform", (m, 1)) - 0.5) * 2.0
 
@@ -828,15 +869,16 @@ class LyapunovSolver:
         nullspace = None
         if opt.nullspace is not None:
             nullspace = _host_orthonormalize(
-                as_tensor(opt.nullspace, dev, dtype), None, mop,
-                opt.ortho_drop_tol)
+                self._own_rows(as_tensor(opt.nullspace, dev, dtype)), None,
+                mop, opt.ortho_drop_tol, self.comm)
         # restart_data's V is already orthonormal and must stay untouched
         # or the Gram data would go inconsistent; restart_from_solution
         # re-enters from a previous solve's V (Gram data recomputed)
         skip_ortho = opt.space_is_orthogonalized or (
             opt.restart_from_solution and opt.space is not None)
         if opt.restart_data is None and not skip_ortho:
-            v0 = _host_orthonormalize(v0, nullspace, mop, opt.ortho_drop_tol)
+            v0 = _host_orthonormalize(v0, nullspace, mop, opt.ortho_drop_tol,
+                                      self.comm)
         k0 = int(v0.shape[1])
         p = self._p()
 
@@ -854,39 +896,46 @@ class LyapunovSolver:
                  + s_slot)
 
         has_m = self.M is not None
+        rows = v0.shape[0]   # this process's rows of the m
 
         def zeros(r, c):
             return torch.zeros((r, c), dtype=dtype, device=dev)
 
-        V = zeros(m, kb)
+        V = zeros(rows, kb)
         V[:, :k0] = v0
         av0 = self.A.matmat(v0)
-        AV = zeros(m, kb)
+        AV = zeros(rows, kb)
         AV[:, :k0] = av0
-        bv0 = self._b_rmatmat(v0)
+        sums = _Sums(self)
+        sums.b_rmatmat(v0)
+        sums.plain(v0.T @ av0)
+        if has_m:
+            mv0 = self.M.matmat(v0)
+            if not mortho:
+                sums.plain(v0.T @ mv0)
+        bv0, vav0, *vmv0 = sums.done()
         BV = zeros(p, kb)
         BV[:, :k0] = bv0
         VAV = zeros(kb, kb)
-        VAV[:k0, :k0] = v0.T @ av0
+        VAV[:k0, :k0] = vav0
         VBV = zeros(kb, kb)
         VBV[:k0, :k0] = bv0.T @ bv0 if self.b_sign is None \
             else bv0.T @ self.b_sign @ bv0
         MV = VMV = None
         if has_m:
-            mv0 = self.M.matmat(v0)
-            MV = zeros(m, kb)
+            MV = zeros(rows, kb)
             MV[:, :k0] = mv0
             if not mortho:
                 VMV = zeros(kb, kb)
-                VMV[:k0, :k0] = v0.T @ mv0
+                VMV[:k0, :k0] = vmv0[0]
         if opt.restart_data is not None:
             rd = opt.restart_data
-            AV[:, :k0] = as_tensor(rd["AV"], dev, dtype)
+            AV[:, :k0] = self._own_rows(as_tensor(rd["AV"], dev, dtype))
             VAV[:k0, :k0] = as_tensor(rd["VAV"], dev, dtype)
 
         st = SolverState(
             V=V, AV=AV, BV=BV, MV=MV, VAV=VAV, VBV=VBV, VMV=VMV,
-            T=zeros(kb, kb), q_warm=zeros(m, 1), k=k0, mvps=k0,
+            T=zeros(kb, kb), q_warm=zeros(rows, 1), k=k0, mvps=k0,
             resvec=np.zeros(opt.maxit, dtype=float),
             recvec=np.zeros(opt.maxit, dtype=bool))
         lyap_method, e_spd = self._resolve_lyap_method()
@@ -894,7 +943,7 @@ class LyapunovSolver:
             p=p, cap_kb=cap_kb, s_top=s_top, s_slot=s_slot,
             L=max(opt.effective_lanczos, s_top + 1), has_m=has_m,
             mortho=mortho, lyap_method=lyap_method, e_spd=e_spd,
-            nullspace=nullspace, r0sq=self._b_norm2sq().to(dtype))
+            nullspace=nullspace, r0sq=self._b_norm2sq().to(dtype), m=m)
         ctx.set_kb(kb, m)
         return st, ctx
 
@@ -978,41 +1027,50 @@ class LyapunovSolver:
     def _tdot(self, x, w):
         """x.T @ w, reducing over the long axis m (compensated: gram2)."""
         if self.options.precision == "compensated":
-            return gram2(x, w)
-        return x.T @ w
+            return gram2(x, w, comm=self.comm)
+        return psum(self.comm, x.T @ w)
 
     def _vdot(self, x, w):
         """The scalar x[:, 0] . w[:, 0] (compensated: dot2)."""
         if self.options.precision == "compensated":
-            return dot2(x[:, 0], w[:, 0])
-        return (x.T @ w)[0, 0]
+            return dot2(x[:, 0], w[:, 0], comm=self.comm)
+        return psum(self.comm, x.T @ w)[0, 0]
 
     def _sgn(self, x):
         """Insert the signed middle factor: B S B' instead of B B'."""
         return x if self.b_sign is None else self.b_sign @ x
 
     def _gram_update(self, st: SolverState, ctx) -> None:
+        """The newest block's Gram rows and columns; its reductions over
+        the rows are finished together (one collective across
+        processes)."""
         ws, s_slot = st.w_start, ctx.s_slot
-        tdot = self._tdot
         W = st.V[:, ws:ws + s_slot].contiguous()
         AW = self.A.matmat(W)
-        _dus(st.VAV, tdot(W, st.AV), ws, 0)
+        sums = _Sums(self)
+        sums.tdot(W, st.AV)          # the old AV's columns at ws
         _dus(st.AV, AW, 0, ws)
-        _dus(st.VAV, tdot(st.V, AW), 0, ws)
+        sums.tdot(st.V, AW)
+        sums.b_rmatmat(W)
+        if ctx.has_m:
+            MW = self.M.matmat(W)
+            _dus(st.MV, MW, 0, ws)
+            if not ctx.mortho:
+                sums.tdot(W, st.MV)  # the new MV's columns at ws
+                sums.tdot(st.V, MW)
+        wav, vaw, BW, *vmv = sums.done()
+        _dus(st.VAV, wav, ws, 0)
+        _dus(st.VAV, vaw, 0, ws)
 
-        BW = self._b_rmatmat(W)
         WBV = BW.T @ self._sgn(st.BV)
         _dus(st.VBV, WBV, ws, 0)
         _dus(st.VBV, WBV.T, 0, ws)
         _dus(st.VBV, BW.T @ self._sgn(BW), ws, ws)
         _dus(st.BV, BW, 0, ws)
 
-        if ctx.has_m:
-            MW = self.M.matmat(W)
-            _dus(st.MV, MW, 0, ws)
-            if not ctx.mortho:
-                _dus(st.VMV, tdot(W, st.MV), ws, 0)
-                _dus(st.VMV, tdot(st.V, MW), 0, ws)
+        if vmv:
+            _dus(st.VMV, vmv[0], ws, 0)
+            _dus(st.VMV, vmv[1], 0, ws)
         st.mvps += st.n_new
 
     # -------------------- projected dense solve --------------------
@@ -1077,9 +1135,14 @@ class LyapunovSolver:
         application of the residual (C++ resid_lanczos inner ops,
         src/LyapunovSolver.hpp:388-403)."""
         mv = st.MV if ctx.has_m else st.V
-        y = self._b_matmat(self._sgn(self._b_rmatmat(q)))
-        y = y + st.AV @ (st.T @ self._tdot(mv, q))
-        y = y + mv @ (st.T @ self._tdot(st.AV, q))
+        sums = _Sums(self)
+        sums.b_rmatmat(q)
+        sums.tdot(mv, q)
+        sums.tdot(st.AV, q)
+        bq, mq, aq = sums.done()
+        y = self._b_matmat(self._sgn(bq))
+        y = y + st.AV @ (st.T @ mq)
+        y = y + mv @ (st.T @ aq)
         return y
 
     def _lanczos(self, st, ctx, g=None, calls=dense_lyap.EAGER_CALLS):
@@ -1089,15 +1152,20 @@ class LyapunovSolver:
         opt = self.options
         m, L, dtype, dev = st.V.shape[0], ctx.L, self.dtype, self.device
         if g is None:
-            g = self._draw(ctx, "lanczos_normal", (m, 1))
-        g = g / torch.linalg.norm(g)
+            g = self._draw(ctx, "lanczos_normal", (ctx.m, 1))
+        if self.comm is None:
+            gnorm = torch.linalg.norm(g)
+            wnorm = torch.linalg.norm(st.q_warm)
+        else:
+            gnorm, wnorm = torch.sqrt(torch.stack(self.comm.allreduce_many(
+                [torch.sum(g * g), torch.sum(st.q_warm * st.q_warm)])))
+        g = g / gnorm
         # warm start: last iteration's top candidate plus a random
         # component guaranteeing overlap with any newly dominant direction
-        wnorm = torch.linalg.norm(st.q_warm)
         one = torch.ones((), dtype=dtype, device=dev)
         q0 = torch.where(wnorm > 0, st.q_warm / torch.where(
             wnorm > 0, wnorm, one) + 0.1 * g, g)
-        q = q0 / torch.linalg.norm(q0)
+        q = q0 / row_norm(self.comm, q0)
         qbuf = torch.zeros((m, L), dtype=dtype, device=dev)
         eps = torch.finfo(dtype).eps
         # lanczos_tolerance: stop the recurrence once beta < tol * scale
@@ -1202,9 +1270,10 @@ class LyapunovSolver:
 
     def _col_norm(self, ctx, x):
         if ctx.mortho:
-            return torch.sqrt(torch.clamp(
-                torch.sum(x * self._inner_prep(ctx, x), dim=0), min=0.0))
-        return torch.linalg.norm(x, dim=0)
+            return torch.sqrt(torch.clamp(psum(
+                self.comm, torch.sum(x * self._inner_prep(ctx, x), dim=0)),
+                min=0.0))
+        return row_norm(self.comm, x, dim=0)
 
     def _finish_append(self, st: SolverState, ctx, wacc, okv) -> None:
         """Capacity limit, compaction of the accepted columns to the
@@ -1313,6 +1382,61 @@ class LyapunovSolver:
         return self._orthonormal_block(st, ctx, w)
 
 
+class _Sums:
+    """The reductions over the rows that one point of the iteration
+    needs, finished together by ``done()``, in the order they were asked
+    for.  With one process each is formed at once, as the solver's
+    helpers form it; across processes each process's partial (a plain
+    product, or a compensated (hi, lo) pair) goes into one collective and
+    is summed in rank order."""
+
+    def __init__(self, solver: "LyapunovSolver"):
+        self.solver = solver
+        self.comm = solver.comm
+        self.items = []   # (kind, value): "done", "sum" or "pair"
+
+    def tdot(self, x, w) -> None:
+        """x' @ w as ``LyapunovSolver._tdot`` reduces it."""
+        s = self.solver
+        if self.comm is None:
+            self.items.append(("done", s._tdot(x, w)))
+        elif s.options.precision == "compensated":
+            self.items.append(("pair", gram2_pair(x, w)))
+        else:
+            self.items.append(("sum", x.T @ w))
+
+    def plain(self, partial) -> None:
+        """A plain sum over the rows (``partial`` this process's part)."""
+        self.items.append(("done" if self.comm is None else "sum", partial))
+
+    def b_rmatmat(self, x) -> None:
+        """B' @ x as ``LyapunovSolver._b_rmatmat`` forms it."""
+        s = self.solver
+        if s._b_is_operator:
+            self.items.append(("done", s.B.rmatmat(x)))
+        else:
+            self.plain(s._b_array.T @ x)
+
+    def done(self) -> list:
+        flat = []
+        for kind, v in self.items:
+            if kind == "sum":
+                flat.append(v)
+            elif kind == "pair":
+                flat.extend(v)
+        got = iter(self.comm.allgather_many(flat) if flat else ())
+        out = []
+        for kind, v in self.items:
+            if kind == "sum":
+                out.append(self.comm.rank_sum(next(got)))
+            elif kind == "pair":
+                his = next(got)
+                out.append(rank_pair_sum(his, next(got)))
+            else:
+                out.append(v)
+        return out
+
+
 class _Context:
     """Per-solve constants: the geometry, the resolved projected-solver
     method, r0sq, the nullspace basis, and the current capacity Kb."""
@@ -1326,10 +1450,12 @@ class _Context:
         self.col_ids = torch.arange(kb, device=self.r0sq.device)
 
 
-def _host_orthonormalize(w, nullspace, m_op, drop_tol):
+def _host_orthonormalize(w, nullspace, m_op, drop_tol, comm=None):
     """Orthonormalize columns (optionally in the M-inner product, with
     nullspace deflation), dropping dependent columns.  Helper for the
-    initial space; the column count may shrink."""
+    initial space; the column count may shrink.  ``comm``: w holds this
+    process's rows, each reduction over the rows is summed over the
+    processes."""
     if w.ndim == 1:
         w = w[:, None]
     cols = []
@@ -1339,20 +1465,20 @@ def _host_orthonormalize(w, nullspace, m_op, drop_tol):
 
     for i in range(w.shape[1]):
         v = w[:, i:i + 1]
-        n0 = float(torch.linalg.norm(v))
+        n0 = float(row_norm(comm, v))
         if n0 == 0.0:
             continue
         v = v / n0
         for _ in range(2):
             if nullspace is not None:
-                v = v - nullspace @ (nullspace.T @ ip(v))
+                v = v - nullspace @ psum(comm, nullspace.T @ ip(v))
             for c in cols:
-                v = v - c @ (c.T @ ip(v))
+                v = v - c @ psum(comm, c.T @ ip(v))
         if m_op is not None:
             n1 = float(torch.sqrt(torch.clamp(
-                (v.T @ m_op.matmat(v))[0, 0], min=0)))
+                psum(comm, v.T @ m_op.matmat(v))[0, 0], min=0)))
         else:
-            n1 = float(torch.linalg.norm(v))
+            n1 = float(row_norm(comm, v))
         if n1 < drop_tol:
             continue
         cols.append(v / n1)

@@ -28,6 +28,7 @@ import torch
 
 from rails_tpu_torch.linalg.dense_lyap import schur_factors
 from rails_tpu_torch.operators import LinearOperator
+from rails_tpu_torch.parallel.comm import psum, row_norm
 from rails_tpu_torch.utils.device import resolve_device
 from rails_tpu_torch.utils.dtypes import complex_dtype_for, full_precision
 
@@ -101,10 +102,18 @@ def eigs(op: LinearOperator, num: int = 6, *, tol: float = 1e-8,
     where the basis lives.  ``mesh``: the row mesh the operator applies
     over (``parallel/mesh.py``); the JAX package places the basis
     row-sharded on it, which on a one-device mesh needs no placement.
+    On a multi-process mesh the operator applies to this process's rows
+    (a halo operator, a ``LowRankOperator`` with ``comm``): the basis
+    holds this process's rows of the whole random draws, its Gram, norm
+    and Rayleigh reductions are summed over the processes, the
+    eigenvalues are the same on every process and the eigenvectors come
+    back as this process's rows.
     """
     if mesh is not None and device is None:
         device = mesh.device
+    comm = None if mesh is None else mesh.comm
     m, dtype, dev, gen = _setup(op, dtype, device, generator)
+    r0, r1 = (0, m) if comm is None else mesh.local_range(m)
     num = min(num, m)
     if block_size < 1:
         raise ValueError(f"block_size must be >= 1, got {block_size}")
@@ -117,7 +126,7 @@ def eigs(op: LinearOperator, num: int = 6, *, tol: float = 1e-8,
     eps = float(torch.finfo(dtype).eps)
 
     def randn():
-        return torch.randn(m, generator=gen, dtype=dtype, device=dev)
+        return torch.randn(m, generator=gen, dtype=dtype, device=dev)[r0:r1]
 
     def sweep(basis, nb):
         """Extend an orthonormal basis (m, L) holding nb valid columns by
@@ -137,24 +146,24 @@ def eigs(op: LinearOperator, num: int = 6, *, tol: float = 1e-8,
                 col = op.matmat(q[:, j - b:j - b + 1])[:, 0]
             qm = q[:, :j]
             for _ in range(2):
-                col = col - qm @ (qm.T @ col)
-            small = torch.linalg.norm(col) < eps * 100
+                col = col - qm @ psum(comm, qm.T @ col)
+            small = row_norm(comm, col) < eps * 100
             col = torch.where(small, rnd, col)
             for _ in range(2):
-                col = col - qm @ (qm.T @ col)
-            q[:, j] = col / torch.linalg.norm(col)
+                col = col - qm @ psum(comm, qm.T @ col)
+            q[:, j] = col / row_norm(comm, col)
         aq = op.matmat(q)
-        g = q.T @ aq
+        g = psum(comm, q.T @ aq)
         g = 0.5 * (g + g.T)
         evals, evecs = torch.linalg.eigh(g)
         order = torch.argsort(-torch.abs(evals))
         evals, evecs = evals[order], evecs[:, order]
         ritz = q @ evecs
-        resid = torch.linalg.norm(aq @ evecs - ritz * evals[None, :], dim=0)
+        resid = row_norm(comm, aq @ evecs - ritz * evals[None, :], dim=0)
         return ritz, evals, resid
 
     with full_precision():
-        basis = torch.zeros((m, L), dtype=dtype, device=dev)
+        basis = torch.zeros((r1 - r0, L), dtype=dtype, device=dev)
         nb = 0
         converged = False
         restart = 0
@@ -247,6 +256,26 @@ def _small_eig(h: torch.Tensor, route=None):
     return lam, vecs / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
 
 
+def _conjugate_order(lam: torch.Tensor, rtol: float = 1e-8) -> torch.Tensor:
+    """The order of ``lam`` by descending modulus, each conjugate pair
+    with its + imaginary member first (a pair's moduli tie up to
+    roundoff, which would otherwise pick the member that ``num`` keeps
+    when it splits the pair; the JAX package returns the + member)."""
+    order = torch.argsort(-torch.abs(lam))
+    z = lam[order].detach().cpu().numpy()
+    idx = order.cpu().numpy().copy()
+    tol = rtol * (abs(z[0]) if z.size else 0.0)
+    i = 0
+    while i + 1 < z.size:
+        if z[i].imag < 0 < z[i + 1].imag \
+                and abs(z[i] - np.conj(z[i + 1])) <= tol:
+            idx[i], idx[i + 1] = idx[i + 1], idx[i]
+            i += 2
+        else:
+            i += 1
+    return torch.as_tensor(idx, device=lam.device)
+
+
 def eigs_general(op: LinearOperator, num: int = 6, *,
                  max_restarts: int = 60, subspace: Optional[int] = None,
                  tol: float = 1e-8, block_size: int = 1,
@@ -260,8 +289,10 @@ def eigs_general(op: LinearOperator, num: int = 6, *,
     complex Schur plus protected back-substitution; restarts keep an
     orthonormal basis of the leading Ritz subspace.
 
-    Returns complex (eigenvalues, eigenvectors), |lambda| descending
-    (plus an EigsInfo when ``return_info=True``); warns with
+    Returns complex (eigenvalues, eigenvectors), |lambda| descending,
+    the + imaginary member of a conjugate pair first, so that a pair
+    split by ``num`` gives its + member as the JAX package does (plus an
+    EigsInfo when ``return_info=True``); warns with
     EigsConvergenceWarning on restart exhaustion.
     """
     m, dtype, dev, gen = _setup(op, dtype, device, generator)
@@ -308,7 +339,7 @@ def eigs_general(op: LinearOperator, num: int = 6, *,
         for restart in range(max(1, max_restarts)):
             q, aq, g = sweep(basis, nb)
             lam, svecs = _small_eig(g)
-            order = torch.argsort(-torch.abs(lam))
+            order = _conjugate_order(lam)
             lam, svecs = lam[order], svecs[:, order]
             ritz_all = q @ svecs
             nr = torch.linalg.norm(ritz_all, dim=0, keepdim=True)

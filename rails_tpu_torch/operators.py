@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from rails_tpu_torch.parallel.comm import psum
 from rails_tpu_torch.utils.device import as_tensor, resolve_device
 
 __all__ = [
@@ -277,29 +278,37 @@ class CallableOperator(LinearOperator):
 
 
 class LowRankOperator(LinearOperator):
-    """U @ W' as an operator (solution operators V T V', B B', ...)."""
+    """U @ W' as an operator (solution operators V T V', B B', ...).
 
-    def __init__(self, u, w=None, *, device=None):
+    ``comm`` (a ``parallel.comm.RowComm``): U and W are this process's
+    rows of row-distributed factors (equal row blocks on every process,
+    as the solver returns V), and so are x and the result: an apply is a
+    local (k, s) product, its sum over the processes, and a local GEMM
+    (the JAX package's local GEMM + psum under GSPMD)."""
+
+    def __init__(self, u, w=None, *, device=None, comm=None):
         self.u = as_tensor(u, device)
         self.w = self.u if w is None else as_tensor(w, self.u.device)
+        self.comm = comm
 
     @property
     def shape(self):
-        return (self.u.shape[0], self.w.shape[0])
+        world = 1 if self.comm is None else self.comm.world
+        return (self.u.shape[0] * world, self.w.shape[0] * world)
 
     @property
     def is_symmetric(self):
         return self.u is self.w
 
     def matmat(self, x):
-        return self.u @ (self.w.T @ x)
+        return self.u @ psum(self.comm, self.w.T @ x)
 
     def rmatmat(self, x):
-        return self.w @ (self.u.T @ x)
+        return self.w @ psum(self.comm, self.u.T @ x)
 
     def _like(self, u, w):
         return LowRankOperator(u, None if self.u is self.w else w,
-                               device=u.device)
+                               device=u.device, comm=self.comm)
 
     def astype(self, dtype):
         if self.u.dtype == dtype and self.w.dtype == dtype:

@@ -16,6 +16,9 @@ adjacent slabs (banded sparsity, and general sparsity after RCM).
   its neighbours' rows (zeros beyond the boundary) and runs the ELL
   kernel (``sparse/ell_spmm.py``, ``csrc/ell_spmm.cu``) on it; on CPU
   tensors the kernel's plain version.
+- On a multi-process mesh a process keeps its own shards' payloads, and
+  the halos at its first and last shard come from the neighbouring
+  processes (``halo_spmm.process_halos``), one exchange per apply.
 
 The JAX package's windowed payload (window starts, window-local indices,
 ``w_cap``, super-window group tables) and its 128-row slab rule serve the
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from rails_tpu_torch.operators import LinearOperator
+from rails_tpu_torch.parallel.halo_spmm import process_halos
 from rails_tpu_torch.parallel.mesh import Mesh
 from rails_tpu_torch.sparse.ell_spmm import ell_spmm
 from rails_tpu_torch.sparse.formats import EllMatrix
@@ -43,9 +47,10 @@ __all__ = ["HaloEll", "build_halo_ell", "halo_ell_spmm", "HaloEllOperator",
 
 @dataclasses.dataclass
 class HaloEll:
-    """Per-shard ELL payloads in extended-local coordinates: ``shards[r]``
-    is (m_loc, halo_lo + m_loc + halo_hi) on ``mesh.devices[r]``.  The
-    halos are uniform over the shards; ``shape`` is the global (m, m)."""
+    """Per-shard ELL payloads in extended-local coordinates: ``shards[i]``
+    is (m_loc, halo_lo + m_loc + halo_hi) on ``mesh.devices[i]``, this
+    process's shards only.  The halos are uniform over all shards;
+    ``shape`` is the global (m, m)."""
 
     shards: List[EllMatrix]
     halo_lo: int
@@ -80,7 +85,7 @@ def build_halo_ell(ell: EllMatrix, mesh: Mesh) -> Optional[HaloEll]:
         return None  # needs rows beyond the adjacent slabs
     ext = halo_lo + m_loc + halo_hi
     shards = []
-    for (r0, r1), dev in zip(mesh.row_slabs(m), mesh.devices):
+    for (r0, r1), dev in zip(mesh.local_slabs(m), mesh.devices):
         loc = torch.from_numpy(
             (indices[r0:r1] - (r0 - halo_lo)).astype(np.int32))
         shards.append(EllMatrix(loc.to(dev),
@@ -90,20 +95,30 @@ def build_halo_ell(ell: EllMatrix, mesh: Mesh) -> Optional[HaloEll]:
 
 
 def halo_ell_spmm(p: HaloEll, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """A @ x over the mesh with the explicit neighbour halo exchange."""
+    """A @ x over the mesh with the explicit neighbour halo exchange (x
+    this process's rows)."""
     if x.ndim == 1:
         return halo_ell_spmm(p, x[:, None], mesh)[:, 0]
     m, s = x.shape
+    ext_lo, ext_hi = process_halos(x, p.halo_lo, p.halo_hi, mesh)
+    slabs = mesh.shard_slabs(m)
     ys = []
-    for (r0, r1), dev, e in zip(mesh.row_slabs(m), mesh.devices, p.shards):
+    for i, ((r0, r1), dev, e) in enumerate(zip(slabs, mesh.devices,
+                                               p.shards)):
         parts = []
         if p.halo_lo:
-            parts.append(x[r0 - p.halo_lo:r0] if r0 > 0 else torch.zeros(
-                (p.halo_lo, s), dtype=x.dtype, device=dev))
+            if i == 0 and ext_lo is not None:
+                parts.append(ext_lo)
+            else:
+                parts.append(x[r0 - p.halo_lo:r0] if r0 > 0 else torch.zeros(
+                    (p.halo_lo, s), dtype=x.dtype, device=dev))
         parts.append(x[r0:r1])
         if p.halo_hi:
-            parts.append(x[r1:r1 + p.halo_hi] if r1 < m else torch.zeros(
-                (p.halo_hi, s), dtype=x.dtype, device=dev))
+            if i == len(slabs) - 1 and ext_hi is not None:
+                parts.append(ext_hi)
+            else:
+                parts.append(x[r1:r1 + p.halo_hi] if r1 < m else torch.zeros(
+                    (p.halo_hi, s), dtype=x.dtype, device=dev))
         ys.append(ell_spmm(e, torch.cat([t.to(dev) for t in parts])))
     return torch.cat(ys)
 

@@ -17,6 +17,10 @@ slabs into that shard's own (span, s) buffers on its device, so a shard
 reads nothing but its slab and its two halos, then launches TPU kernel
 #3's counterpart (``sparse/spmm.py::dia_spmm_halo``,
 ``csrc/dia_spmm_halo.cu``) once per shard into that shard's rows of y.
+On a multi-process mesh a process holds only its own shards' rows and
+payloads; the halos at its first and last shard come from the
+neighbouring processes (``RowComm.neighbour_halos``, the JAX package's
+``ppermute``), one exchange per apply.
 On CPU tensors the same structure runs the kernel's plain version.  The
 JAX package sends only f32, ``m_loc >= 4096`` and two-sided stencils to
 its TPU kernel; the port has no such gate.
@@ -57,10 +61,10 @@ def halo_geometry_ok(dia: DiaMatrix, mesh: Mesh) -> bool:
 
 
 def _cut(dia: DiaMatrix, mesh: Mesh) -> List[DiaMatrix]:
-    """Contiguous per-shard (d, m_loc) copies of the diagonal data on the
-    shards' devices."""
+    """Contiguous (d, m_loc) copies of the diagonal data of this process's
+    shards, on the shards' devices."""
     out = []
-    for (r0, r1), dev in zip(mesh.row_slabs(dia.shape[0]), mesh.devices):
+    for (r0, r1), dev in zip(mesh.local_slabs(dia.shape[0]), mesh.devices):
         data = dia.data[:, r0:r1].to(dev, copy=True).contiguous()
         out.append(DiaMatrix(data, dia.offsets, (r1 - r0, r1 - r0)))
     return out
@@ -76,19 +80,34 @@ def _halo(x: torch.Tensor, a: int, b: int, dev) -> Optional[torch.Tensor]:
     return x[a:b].to(dev, copy=True)
 
 
+def process_halos(x: torch.Tensor, lo: int, hi: int, mesh: Mesh):
+    """The ``lo`` rows below and ``hi`` rows above this process's rows x,
+    from the neighbouring processes (None at the mesh's ends, for an
+    empty halo and with one process)."""
+    if mesh.comm is None:
+        return None, None
+    return mesh.comm.neighbour_halos(x[:hi] if hi else None,
+                                     x[x.shape[0] - lo:] if lo else None)
+
+
 def _halo_apply(shards: List[DiaMatrix], offsets, x: torch.Tensor,
                 mesh: Mesh) -> torch.Tensor:
-    """y = A @ x over the mesh: per shard, the halo exchange and one
-    launch of the shard-local kernel into that shard's rows of y."""
+    """y = A @ x over the mesh, x this process's rows: per shard, the halo
+    exchange and one launch of the shard-local kernel into that shard's
+    rows of y."""
     if x.ndim == 1:
         return _halo_apply(shards, offsets, x[:, None], mesh)[:, 0]
     x = x.contiguous()
     span_lo, span_hi = _spans(offsets)
+    ext_lo, ext_hi = process_halos(x, span_lo, span_hi, mesh)
     y = torch.empty_like(x)
-    for (r0, r1), dev, dia_loc in zip(mesh.row_slabs(x.shape[0]),
-                                      mesh.devices, shards):
-        hl = _halo(x, r0 - span_lo, r0, dev)
-        hh = _halo(x, r1, r1 + span_hi, dev)
+    slabs = mesh.shard_slabs(x.shape[0])
+    for i, ((r0, r1), dev, dia_loc) in enumerate(zip(slabs, mesh.devices,
+                                                     shards)):
+        hl = ext_lo.to(dev) if i == 0 and ext_lo is not None \
+            else _halo(x, r0 - span_lo, r0, dev)
+        hh = ext_hi.to(dev) if i == len(slabs) - 1 and ext_hi is not None \
+            else _halo(x, r1, r1 + span_hi, dev)
         dia_spmm_halo(dia_loc.data, dia_loc.offsets_t, x[r0:r1], hl, hh,
                       out=y[r0:r1], offsets=dia_loc.offsets)
     return y
@@ -105,8 +124,9 @@ def _check(dia: DiaMatrix, mesh: Mesh) -> None:
 def halo_dia_spmm(dia: DiaMatrix, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """A @ x with the explicit neighbour halo exchange over the mesh.
 
-    ``dia.data`` must be (d, m) and ``x`` (m, s) with m divisible by the
-    mesh size and the stencil's spans below one slab."""
+    ``dia.data`` must be (d, m) and ``x`` (m, s) - this process's rows of
+    it on a multi-process mesh - with m divisible by the mesh size and
+    the stencil's spans below one slab."""
     _check(dia, mesh)
     return _halo_apply(_cut(dia, mesh), dia.offsets, x, mesh)
 
@@ -115,8 +135,8 @@ class HaloDiaOperator(LinearOperator):
     """LinearOperator running the explicit-halo SpMM over the mesh.
 
     The payloads are cut into per-shard slabs at construction (the JAX
-    package places them column-sharded there); ``bwd`` is the transpose's
-    payload, None when symmetric."""
+    package places them column-sharded there), this process's shards
+    only; ``bwd`` is the transpose's payload, None when symmetric."""
 
     def __init__(self, dia: DiaMatrix, mesh: Mesh,
                  bwd: Optional[DiaMatrix] = None, *,

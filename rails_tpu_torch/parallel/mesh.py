@@ -12,13 +12,19 @@ other.  That is how one card runs the row-sharded path with real
 neighbour halos (eight shards on ``cpu`` in the tests, four on
 ``cuda:0`` in ``chip_smoke.py``).
 
-A mesh over more than one distinct device needs a row-sharded solver
-state and collectives between cards; it raises ``NotImplementedError``
-(``MULTI_DEVICE_TODO``).  The JAX package's ``NamedSharding`` helpers
-(``row_sharding``, ``col_sharding``, ``replicated``) have no counterpart:
-with one device there is nothing to place, and the operators of
-``halo_spmm.py``, ``halo_ell.py`` and ``schur_dist.py`` cut their own
-per-shard payloads.
+Across cards the port runs one process per device
+(``multihost.initialize``): inside a process group ``make_mesh()`` is
+the global mesh of ``world x local`` shards, where ``local`` is this
+process's entries, all on its one device; ``comm`` (``comm.RowComm``)
+carries the row reductions, halos and gathers between the processes, and
+this process holds the rows of its own shards (``local_range``).  One
+process over several distinct devices raises ``NotImplementedError``
+(``MULTI_DEVICE_BY_DESIGN``): it would be a second distributed
+implementation beside the one-process-per-card one.  The JAX package's
+``NamedSharding`` helpers (``row_sharding``, ``col_sharding``,
+``replicated``) have no counterpart: the operators of ``halo_spmm.py``,
+``halo_ell.py`` and ``schur_dist.py`` cut their own per-shard payloads,
+and ``sharded.shard_array_rows`` a process's rows.
 """
 
 from __future__ import annotations
@@ -29,15 +35,18 @@ import torch
 
 from rails_tpu_torch.utils.device import resolve_device
 
-__all__ = ["Mesh", "make_mesh", "ROW_AXIS", "MULTI_DEVICE_TODO",
+__all__ = ["Mesh", "make_mesh", "ROW_AXIS", "MULTI_DEVICE_BY_DESIGN",
            "canonical_device"]
 
 ROW_AXIS = "rows"
 
-MULTI_DEVICE_TODO = (
-    "a mesh over more than one distinct device (a row-sharded solver "
-    "state, NCCL collectives between cards, more than one process) is not "
-    "ported yet: ROADMAP Queue 1 item 7, the multi-card slice")
+MULTI_DEVICE_BY_DESIGN = (
+    "one process over more than one distinct device is not supported, by "
+    "design: run one process per card (multihost.initialize(coordinator, "
+    "num_processes, process_id), or python -m rails_tpu_torch.cli "
+    "--distributed --num-processes N --process-id r --coordinator "
+    "host:port), each with make_mesh() over its own device (ROADMAP, "
+    "Differences by design)")
 
 
 def canonical_device(device) -> torch.device:
@@ -50,44 +59,86 @@ def canonical_device(device) -> torch.device:
 
 
 class Mesh:
-    """A 1-D ``rows`` mesh: ``devices[r]`` holds row shard r.
+    """A 1-D ``rows`` mesh: ``devices[i]`` holds this process's i-th row
+    shard.
 
-    ``size`` is the number of shards; ``device`` is the one device they
-    all lie on."""
+    ``size`` is the number of shards over all processes; ``device`` is
+    the one device this process's shards lie on; ``comm`` the row
+    communicator of a multi-process mesh (None for one process), whose
+    rank r holds shards ``r * len(devices)`` onwards."""
 
-    def __init__(self, devices: Sequence):
+    def __init__(self, devices: Sequence, comm=None):
         devs = tuple(canonical_device(d) for d in devices)
         if not devs:
             raise ValueError("a mesh needs at least one device")
         if len(set(devs)) > 1:
-            raise NotImplementedError(MULTI_DEVICE_TODO)
+            raise NotImplementedError(MULTI_DEVICE_BY_DESIGN)
+        if comm is not None and devs[0] != canonical_device(comm.device):
+            raise ValueError(f"the mesh's device {devs[0]} is not this "
+                             f"rank's device {comm.device}")
         self.devices = devs
+        self.comm = comm
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        return len(self.devices) * (1 if self.comm is None
+                                    else self.comm.world)
 
     @property
     def device(self) -> torch.device:
         return self.devices[0]
 
     def row_slabs(self, m: int) -> List[Tuple[int, int]]:
-        """The per-shard row ranges [r0, r1) of an m-row object: equal
-        contiguous slabs, as the JAX package's shardings require."""
+        """The per-shard row ranges [r0, r1) of an m-row object, over all
+        processes: equal contiguous slabs, as the JAX package's shardings
+        require."""
         if m % self.size:
             raise ValueError(f"rows {m} not divisible by mesh size "
                              f"{self.size}")
         m_loc = m // self.size
         return [(r * m_loc, (r + 1) * m_loc) for r in range(self.size)]
 
+    def local_slabs(self, m: int) -> List[Tuple[int, int]]:
+        """This process's shards' row ranges of an m-row object (global
+        rows)."""
+        first = 0 if self.comm is None else self.comm.rank * len(self.devices)
+        return self.row_slabs(m)[first:first + len(self.devices)]
+
+    def local_range(self, m: int) -> Tuple[int, int]:
+        """The rows [r0, r1) of an m-row object that this process holds."""
+        slabs = self.local_slabs(m)
+        return slabs[0][0], slabs[-1][1]
+
+    def shard_slabs(self, rows: int) -> List[Tuple[int, int]]:
+        """This process's shards' ranges within its own ``rows`` rows
+        (local rows; with one process the global slabs)."""
+        n = len(self.devices)
+        if rows % n:
+            raise ValueError(f"rows {rows} not divisible by the {n} local "
+                             f"shards")
+        step = rows // n
+        return [(i * step, (i + 1) * step) for i in range(n)]
+
     def __repr__(self):
-        return f"Mesh({self.size} x {self.device})"
+        if self.comm is None:
+            return f"Mesh({self.size} x {self.device})"
+        return (f"Mesh({self.size} shards, rank {self.comm.rank} of "
+                f"{self.comm.world}: {len(self.devices)} x {self.device})")
 
 
 def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
     """1-D mesh over ``devices`` (default: every visible CUDA device, the
     first ``n_devices`` of them when given).  Pass a list that repeats one
-    device, e.g. ``devices=["cpu"] * 8``, for several shards on it."""
+    device, e.g. ``devices=["cpu"] * 8``, for several shards on it.
+
+    Inside a process group (``multihost.initialize``) this is the global
+    mesh: ``devices`` (default: this rank's device, once) are this
+    process's shards, and every process passes as many."""
+    from rails_tpu_torch.parallel.multihost import current_comm
+
+    comm = current_comm()
+    if comm is not None:
+        return Mesh([comm.device] if devices is None else devices, comm)
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

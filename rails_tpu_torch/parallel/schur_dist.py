@@ -15,10 +15,15 @@ factorization of A11 serial.
   * ``A12 @ x`` and ``A21' @ x`` (x row-sharded (n2, s)) are a
     scatter-add (``index_add_``) of each shard's rows into an (n1, s)
     partial, and the partials are summed: the JAX package's per-device
-    scatter and ``psum``.
+    scatter and ``psum``; on a multi-process mesh each process sums its
+    shards' partials and the processes' sums are reduced
+    (``RowComm.allreduce``), one skinny (n1, s) block per apply.
 - **A11^{-1}** is the dense LU of the ``SchurReduction``, applied with
   ``torch.linalg.lu_solve`` on the mesh's device: the JAX package
-  replicates it on every device.
+  replicates it on every device, and every process holds it.
+
+On a multi-process mesh a process holds only its own shards' rows of
+A21, A12' and A22, and of the vectors it applies S to.
 
 ``distribute_schur(red, mesh)`` builds the operator from a
 ``SchurReduction``; ``LyapunovSolver(op, red.bs, red.ms, mesh=mesh)``
@@ -71,12 +76,13 @@ def pad_system(a, m, b, multiple: int, singular_tol: float = 1e-12):
 
 
 def _cut_rows(idx, val, n_cols: int, mesh: Mesh) -> List[EllMatrix]:
-    """Per-shard (n2_loc, n_cols) ELL payloads of n2-row ELL arrays."""
+    """This process's per-shard (n2_loc, n_cols) ELL payloads of n2-row
+    ELL arrays."""
     idx = torch.as_tensor(idx)
     val = torch.as_tensor(val)
     return [EllMatrix(idx[r0:r1].to(dev, copy=True),
                       val[r0:r1].to(dev, copy=True), (r1 - r0, n_cols))
-            for (r0, r1), dev in zip(mesh.row_slabs(idx.shape[0]),
+            for (r0, r1), dev in zip(mesh.local_slabs(idx.shape[0]),
                                      mesh.devices)]
 
 
@@ -116,9 +122,10 @@ class DistributedSchurOperator(LinearOperator):
 
     def _scatter(self, shards: List[EllMatrix], x: torch.Tensor):
         """(n2-row ELL)' @ x: each shard scatter-adds its rows into an
-        (n1, s) partial; the partials are summed."""
+        (n1, s) partial; the partials are summed, over the processes
+        too."""
         total = None
-        for (r0, r1), e in zip(self.mesh.row_slabs(x.shape[0]), shards):
+        for (r0, r1), e in zip(self.mesh.shard_slabs(x.shape[0]), shards):
             x_l = x[r0:r1].to(e.values.device)
             s = x_l.shape[1]
             part = torch.zeros((self.n1, s), dtype=x.dtype,
@@ -127,6 +134,8 @@ class DistributedSchurOperator(LinearOperator):
                             (e.values[:, :, None] * x_l[:, None, :])
                             .reshape(-1, s))
             total = part if total is None else total + part.to(total.device)
+        if self.mesh.comm is not None:
+            total = self.mesh.comm.allreduce(total)
         return total
 
     def _gather(self, shards: List[EllMatrix], y: torch.Tensor):

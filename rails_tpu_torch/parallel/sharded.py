@@ -10,12 +10,22 @@ unsharded: its applies run the single-device kernels, the one-device
 counterpart of the JAX package's ``SparseOperator(..., use_pallas=False)``
 under its partitioner (torch has no partitioner).
 
-While the mesh is one device (``mesh.py``) dense, diagonal, identity and
-callable operators, the solver state and row-sharded arrays need no
-placement: ``shard_state`` and ``shard_array_rows`` are identity maps.
+With one process dense, diagonal, identity and callable operators, the
+solver state and row-sharded arrays need no placement: ``shard_state``
+and ``shard_array_rows`` are identity maps.  On a multi-process mesh
+(``mesh.comm`` set) each process holds only its own rows
+(``Mesh.local_range``): ``shard_array_rows`` and ``shard_state`` cut an
+m-row tensor to them (a rank slab from ``multihost.make_global_array``
+stays as it is), the halo operators keep this process's shards, a
+diagonal operator its rows, and any other operator becomes a
+``GatheredOperator``: its input rows gathered from every process, the
+whole product formed, this process's rows kept (the partitioner's
+fallback in the JAX package).
 """
 
 from __future__ import annotations
+
+import torch
 
 from rails_tpu_torch.operators import (
     CallableOperator, DenseOperator, DiagonalOperator, IdentityOperator,
@@ -28,18 +38,90 @@ from rails_tpu_torch.parallel.mesh import Mesh
 from rails_tpu_torch.sparse.formats import (
     DiaMatrix, EllMatrix, HybMatrix, SparseOperator)
 
-__all__ = ["shard_operator", "shard_state", "shard_array_rows"]
+__all__ = ["shard_operator", "shard_state", "shard_array_rows",
+           "GatheredOperator"]
 
 
-def shard_array_rows(x, mesh: Mesh):
-    """Row-shard an (m, ...) array: the identity on a one-device mesh."""
-    return x
+def shard_array_rows(x, mesh: Mesh, m=None):
+    """This process's rows of an (m, ...) array (``m`` defaults to x's
+    rows: the array is taken as whole); a tensor that holds this rank's
+    m / world rows already (a slab from ``multihost.make_global_array``)
+    stays as it is.  The identity with one process."""
+    if mesh.comm is None or x is None:
+        return x
+    rows = x.shape[0]
+    m = rows if m is None else m
+    if rows == m:
+        r0, r1 = mesh.local_range(m)
+        return x[r0:r1]
+    if rows * mesh.comm.world == m:
+        return x
+    raise ValueError(f"{rows} rows are neither the whole {m} rows nor this "
+                     f"rank's {m // mesh.comm.world}")
 
 
-def shard_state(state, mesh: Mesh):
-    """Row-shard the m-sized solver buffers and replicate the rest: the
-    identity on a one-device mesh."""
+def shard_state(state, mesh: Mesh, m=None):
+    """The solver state on the mesh: every m-row tensor of ``state`` (a
+    tensor or a dict of them) cut to this process's rows, the rest
+    replicated as it is; the identity with one process."""
+    if mesh.comm is None:
+        return state
+    if isinstance(state, dict):
+        return {k: shard_state(v, mesh, m) for k, v in state.items()}
+    if isinstance(state, torch.Tensor) and state.ndim \
+            and state.shape[0] == m:
+        return shard_array_rows(state, mesh, m)
     return state
+
+
+class GatheredOperator(LinearOperator):
+    """``op`` on a multi-process mesh where it has no row-local apply: an
+    input with ``m`` rows is gathered from every process
+    (``RowComm.allgather_rows``), the whole product formed on every
+    process, and an output with ``m`` rows cut to this process's rows.
+    An (m, p) B therefore gives a replicated B' x and a row-local B y."""
+
+    def __init__(self, op: LinearOperator, mesh: Mesh, m: int):
+        self.op = op
+        self.mesh = mesh
+        self.m = m
+        self.is_symmetric = op.is_symmetric
+        self.is_spd = op.is_spd
+        self.is_hurwitz = op.is_hurwitz
+
+    @property
+    def shape(self):
+        return self.op.shape
+
+    @property
+    def payload_dtype(self):
+        return self.op.payload_dtype
+
+    @property
+    def payload_device(self):
+        return self.op.payload_device
+
+    def _apply(self, fn, x, n_in, n_out):
+        if n_in == self.m:
+            x = self.mesh.comm.allgather_rows(x)
+        y = fn(x)
+        if n_out == self.m:
+            r0, r1 = self.mesh.local_range(self.m)
+            y = y[r0:r1]
+        return y
+
+    def matmat(self, x):
+        n_out, n_in = self.op.shape
+        return self._apply(self.op.matmat, x, n_in, n_out)
+
+    def rmatmat(self, x):
+        n_in, n_out = self.op.shape
+        return self._apply(self.op.rmatmat, x, n_in, n_out)
+
+    def astype(self, dtype):
+        op = self.op.astype(dtype)
+        return self if op is self.op else GatheredOperator(op, self.mesh,
+                                                           self.m)
 
 
 def _try_halo_hyb(op: SparseOperator, mesh: Mesh):
@@ -94,7 +176,7 @@ def shard_operator(op: LinearOperator, mesh: Mesh,
         # with its payloads already cut
         return op
     if isinstance(op, (DenseOperator, DiagonalOperator)):
-        return op
+        return _unsharded(op, mesh)
     if isinstance(op, SparseOperator):
         tags = dict(is_symmetric=op.is_symmetric, is_spd=op.is_spd,
                     is_hurwitz=op.is_hurwitz)
@@ -131,7 +213,22 @@ def shard_operator(op: LinearOperator, mesh: Mesh,
                     "spmm='halo' requires both the DIA and ELL parts of the "
                     "HYB payload (and its transpose) to satisfy the halo "
                     "slab geometry")
-        return op
+        return _unsharded(op, mesh)
     if isinstance(op, (CallableOperator, IdentityOperator)):
-        return op
+        return _unsharded(op, mesh)
     raise TypeError(f"cannot shard operator of type {type(op)}")
+
+
+
+def _unsharded(op: LinearOperator, mesh: Mesh) -> LinearOperator:
+    """An operator with no halo form: itself with one process; on a
+    multi-process mesh a diagonal operator's rows of this process, the
+    identity as it is, and anything else a ``GatheredOperator``."""
+    if mesh.comm is None or isinstance(op, IdentityOperator):
+        return op
+    m = op.shape[0]
+    if isinstance(op, DiagonalOperator):
+        r0, r1 = mesh.local_range(m)
+        return DiagonalOperator(op.d[r0:r1], is_spd=op.is_spd,
+                                device=op.d.device)
+    return GatheredOperator(op, mesh, m)

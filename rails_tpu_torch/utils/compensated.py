@@ -17,6 +17,11 @@ restore near-float64 results from float32 storage:
   plain float32) reduced across chunks by a compensated pairwise tree:
   the error drops from ~sqrt(m)*eps to ~sqrt(chunk)*eps.
 
+Across processes (``comm``, a ``parallel.comm.RowComm``) each rank's
+(hi, lo) partial is gathered and the his are reduced in rank order by the
+``two_sum`` tree, the los added to the compensation (``psum2``): the JAX
+package's psum of the partial pair, kept compensated.
+
 These are plain tensor operations, as in the JAX package, where they run
 in XLA outside any Pallas kernel.  The chunk products run under
 ``utils/dtypes.full_precision`` (TF32 off): a TF32 chunk product would
@@ -29,7 +34,8 @@ import torch
 
 from rails_tpu_torch.utils.dtypes import full_precision
 
-__all__ = ["two_sum", "two_prod", "dot2", "gram2", "gram2_pair", "sum2"]
+__all__ = ["two_sum", "two_prod", "dot2", "dot2_pair", "gram2",
+           "gram2_pair", "sum2", "psum2", "rank_pair_sum"]
 
 
 def two_sum(a, b):
@@ -82,14 +88,49 @@ def sum2(x, dim: int = 0):
     return hi + lo
 
 
-def dot2(x, y, block: int = 65536):
+def psum2(comm, pairs):
+    """The compensated sum over ranks of each rank's (hi, lo) pairs, in
+    one collective: every rank's his reduced by the ``two_sum`` tree in
+    rank order, their errors and every rank's lo added to the
+    compensation; returns the collapsed sums."""
+    flat = [t for pair in pairs for t in pair]
+    gathered = comm.allgather_many(flat)
+    return [rank_pair_sum(gathered[2 * i], gathered[2 * i + 1])
+            for i in range(len(pairs))]
+
+
+def rank_pair_sum(his, los):
+    """The collapsed compensated sum of gathered (world, ...) pairs: the
+    his by the ``two_sum`` tree, their errors and the los, rank 0 first,
+    into the compensation."""
+    hi, lo = _pairwise_two_sum(his)
+    for i in range(los.shape[0]):
+        lo = lo + los[i]
+    return hi + lo
+
+
+def dot2(x, y, block: int = 65536, comm=None):
     """Compensated x' @ y along axis 0 at full working-precision accuracy.
 
     x: (m,) or (m, a); y: (m,) or (m, b).  Output (), (a,), (b,) or
     (a, b) matching a plain ``x.T @ y``.  Elementwise (about ten flops
     per product term): for skinny operands, where the op is bound by the
     bytes it reads.  The (m, a, b) product stream is reduced in blocks of
-    ``block`` rows to bound memory."""
+    ``block`` rows to bound memory.  ``comm``: x and y are this rank's
+    rows, the result is reduced over the ranks (``psum2``)."""
+    hi, lo = dot2_pair(x, y, block)
+    out = hi + lo if comm is None else psum2(comm, [(hi, lo)])[0]
+    if x.ndim == 1 and y.ndim == 1:
+        return out[0, 0]
+    if x.ndim == 1:
+        return out[0]
+    if y.ndim == 1:
+        return out[:, 0]
+    return out
+
+
+def dot2_pair(x, y, block: int = 65536):
+    """Like ``dot2`` but returns the (a, b) pair (hi, lo) uncollapsed."""
     xv = x[:, None] if x.ndim == 1 else x
     yv = y[:, None] if y.ndim == 1 else y
     m, a = xv.shape
@@ -104,14 +145,7 @@ def dot2(x, y, block: int = 65536):
         ph, pl = _pairwise_two_sum(p)
         hi, e2 = two_sum(hi, ph)
         lo = lo + e2 + pl + torch.sum(e, dim=0)
-    out = hi + lo
-    if x.ndim == 1 and y.ndim == 1:
-        return out[0, 0]
-    if x.ndim == 1:
-        return out[0]
-    if y.ndim == 1:
-        return out[:, 0]
-    return out
+    return hi, lo
 
 
 def _chunk_parts(x, w, chunk: int):
@@ -135,9 +169,12 @@ def gram2_pair(x, w, chunk: int = 1024):
     return _pairwise_two_sum(_chunk_parts(x, w, chunk))
 
 
-def gram2(x, w, chunk: int = 1024):
+def gram2(x, w, chunk: int = 1024, comm=None):
     """x' @ w for x (m, a), w (m, b) -> (a, b): chunked float32 products
     and a compensated cross-chunk pairwise reduction.  Memory overhead is
-    the (nchunks, a, b) partial buffer."""
+    the (nchunks, a, b) partial buffer.  ``comm``: x and w are this
+    rank's rows, the result is reduced over the ranks (``psum2``)."""
     hi, lo = gram2_pair(x, w, chunk)
+    if comm is not None:
+        return psum2(comm, [(hi, lo)])[0]
     return hi + lo

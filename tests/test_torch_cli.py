@@ -105,11 +105,28 @@ class TestCli:
         assert _table(out).shape == (3, 2)
 
     def test_distributed_raises(self, dae_dir):
-        """--distributed runs in one process (tests/test_torch_schur_dist.py);
-        more than one process raises."""
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main([str(dae_dir / "port"), "--device", "cpu",
-                      "--distributed", "--num-processes", "2"])
+        """--distributed --num-processes 2 runs: two gloo processes on the
+        CPU (no longer a refusal; four processes:
+        tests/test_torch_multihost_cli.py), both converged in as many
+        iterations, with equal eigenvalue tables."""
+        from test_torch_multihost import _free_port, run_workers
+
+        coordinator = f"127.0.0.1:{_free_port()}"
+        outs = run_workers(
+            ["-m", "rails_tpu_torch.cli"],
+            lambda pid: [str(dae_dir / "port"), "--device", "cpu", "--x64",
+                         "--distributed", "--num-processes", "2",
+                         "--process-id", str(pid), "--coordinator",
+                         coordinator], 2)
+        for rc, out, err in outs:
+            assert rc == 0, f"rc={rc}\nstdout:{out}\nstderr:{err}"
+            assert "Distributed run: 2 processes, 2 shards, backend gloo" \
+                in out
+            assert "Solver converged" in out
+        its = {re.search(r"converged in (\d+) iterations", o).group(1)
+               for _, o, _ in outs}
+        assert len(its) == 1
+        np.testing.assert_array_equal(_table(outs[0][1]), _table(outs[1][1]))
 
 
 class TestIo:

@@ -137,8 +137,9 @@ def test_save_load_round_trip(tmp_path):
 
 
 def test_mesh_raises():
-    """A mesh over more than one distinct device is not ported (one
-    device: tests/test_torch_mesh.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """One process over more than one distinct device is refused by
+    design (one device: tests/test_torch_mesh.py; one process per card:
+    tests/test_torch_multihost.py)."""
+    with pytest.raises(NotImplementedError, match="one process per card"):
         rt.ContinuationSolver(np.ones((4, 1)), mesh=rt.make_mesh(
             devices=["cpu", "meta"]))

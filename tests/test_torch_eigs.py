@@ -87,9 +87,10 @@ class TestEigs:
             _, _, info = eigs(opt, num=6, tol=1e-14, max_restarts=1,
                               subspace=10, return_info=True)
         assert not info.converged and info.residuals.shape == (6,)
-        # a mesh over more than one distinct device is not ported
+        # one process over distinct devices is refused by design
         from rails_tpu_torch.parallel.mesh import make_mesh
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match="one process per card"):
             eigs(opt, num=2, mesh=make_mesh(devices=["cpu", "meta"]))
 
     def test_generator_is_used(self, rng):
@@ -121,6 +122,24 @@ class TestEigsGeneral:
             <= 2e-8 * lam_max
         r = a @ vt.numpy() - vt.numpy() * et.numpy()[None, :]
         assert np.linalg.norm(r, axis=0).max() <= 1e-8 * lam_max
+
+    def test_split_pair_gives_the_plus_member(self, rng):
+        """tests/test_schur_path.py::TestEigsGeneral::test_nonsymmetric
+        (80 x 80 uniform, num = 3): the third |lambda| is a conjugate pair
+        that num splits.  The port puts a pair's + imaginary member first,
+        so for every generator it returns the member the JAX package
+        returns (1.411 + 4.963j), not roundoff's choice."""
+        a = rng.uniform(-1, 1, (80, 80))
+        opj, opt = _pair(a)
+        ej = np.asarray(jax_eigs_general(opj, num=3)[0])
+        assert ej[2].imag > 0
+        for seed in range(4):
+            et, vt = eigs_general(opt, num=3,
+                                  generator=torch.Generator().manual_seed(
+                                      seed))
+            assert np.abs(et.numpy() - ej).max() <= 1e-6 * abs(ej[0])
+            r = a @ vt.numpy() - vt.numpy() * et.numpy()[None, :]
+            assert np.linalg.norm(r, axis=0).max() < 1e-5
 
     def test_nonsymmetric_sparse_matches_jax(self):
         # a convection-diffusion stencil

@@ -203,16 +203,24 @@ class TestGeometry:
             assert [e.shape for e in pt.shards] == \
                 [(m // 8, pt.halo_lo + m // 8 + pt.halo_hi)] * 8
 
-    def test_mesh_and_multihost(self):
+    def test_mesh_and_multihost(self, tmp_path):
+        self.tmp = tmp_path
         mt = make_mesh(devices=["cpu"] * 4)
         assert mt.size == 4 and mt.row_slabs(12) == [(0, 3), (3, 6),
                                                      (6, 9), (9, 12)]
         with pytest.raises(ValueError, match="divisible"):
             mt.row_slabs(10)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match="one process per card"):
             make_mesh(devices=["cpu", "meta"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            multihost.initialize(num_processes=2)
+        # two processes join a gloo group: process_count() is 2 in each
+        from test_torch_multihost import run_modes
+
+        run_modes(["count"], 2, 1, self.tmp)
+        for r in range(2):
+            z = np.load(self.tmp / f"count.2x1.r{r}.npz")
+            assert (int(z["process_count"]), int(z["process_index"]),
+                    int(z["shards"])) == (2, r, 2)
         multihost.initialize(num_processes=1)
         x = torch.ones(12, 2)
         assert multihost.make_global_array(x, mt) is x
@@ -462,7 +470,7 @@ def test_eigs_mesh_matches_jax(rng, meshes):
     ej = np.asarray(ej)
     assert np.abs(et.numpy() - ej).max() <= 1e-8 * abs(ej[0])
     assert vt.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="one process per card"):
         rt.eigs(ht, num=2, mesh=make_mesh(devices=["cpu", "meta"]))
 
 

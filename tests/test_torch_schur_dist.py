@@ -229,8 +229,29 @@ class TestCliDistributed:
             jax_cli.main([str(tmp_path / "jax"), "--platform", "cpu",
                           "--x64", "--distributed"])
 
-    def test_more_processes_raise(self, tmp_path):
-        make_problem.make("dae", str(tmp_path))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main([str(tmp_path), "--device", "cpu", "--distributed",
-                      "--num-processes", "2"])
+    def test_more_processes_raise(self, tmp_path, params, capsys):
+        """Two processes no longer raise: the CLI's distributed Schur path
+        on two gloo processes on the CPU gives a DistributedSchurOperator
+        on each and the one-process run's eigenvalue table (both solve to
+        tol 1e-10: 1e-6 of each eigenvalue, as against the JAX CLI)."""
+        from test_torch_multihost import _free_port, run_workers
+
+        make_problem.make("dae", str(tmp_path / "d"))
+        coordinator = f"127.0.0.1:{_free_port()}"
+        outs = run_workers(
+            ["-m", "rails_tpu_torch.cli"],
+            lambda pid: [str(tmp_path / "d"), "--device", "cpu", "--x64",
+                         "--params", params, "--distributed",
+                         "--num-processes", "2", "--process-id", str(pid),
+                         "--coordinator", coordinator], 2)
+        for rc, out, err in outs:
+            assert rc == 0, f"rc={rc}\nstdout:{out}\nstderr:{err}"
+            assert "Distributed operator: DistributedSchurOperator" in out
+        capsys.readouterr()
+        assert cli.main([str(tmp_path / "d"), "--device", "cpu", "--x64",
+                         "--params", params, "--distributed"]) == 0
+        one = _table(capsys.readouterr().out)
+        for _, out, _ in outs:
+            tt = _table(out)
+            assert tt.shape == one.shape == (6, 2)
+            assert np.all(np.abs(tt - one) <= 1e-6 * np.abs(one))
