@@ -206,9 +206,10 @@ exits nonzero and never prints the last line):
 28. multiprocess - the row mesh across processes: this script started
               again as worker processes (``--worker``), every one on
               cuda:0 with backend gloo (NCCL refuses two ranks on one
-              card), each checked to exit 0.  First two one-process runs
-              of phase 15 with B scaled by 1 +- 1e-15: the iteration
-              count's spread under rounding (``MP_ITER_BAND``).  (a)
+              card), each checked to exit 0.  Under ``--only`` first two
+              one-process runs of phase 15 with B scaled by 1 +- 1e-15:
+              the iteration count's spread under rounding
+              (``MP_ITER_BAND``).  (a)
               mesh_solve's problem (phase 15) on 2 processes (4 took
               240 s) of one shard each: per rank the
               iterations, status, wall, s per iteration, collectives and
@@ -227,10 +228,35 @@ exits nonzero and never prints the last line):
               kernel #4's launches per rank.  (c) (a) over NCCL, one card
               per rank, where the cards reach the rank count; else one
               line saying why it was not run.
+29. multiprocess_compiled - ``solve(compiled=True)`` across processes:
+              the capture audit's two collective rows (an NCCL
+              all-gather captures, a staged gloo one does not); then
+              MP_RANKS ``--worker compiled`` processes on cuda:0 over
+              gloo, the row collectives host steps of the recording:
+              (a) mesh_solve's problem for 60 iterations compiled and
+              eager at full capacity, the same bits per rank; (b) the
+              problem compiled to tol: iterations, wall, s per
+              iteration, collectives and host-staged bytes per
+              iteration, kernel #3's launches per rank and #3 on the
+              rank's shard against its plain version, T and info the
+              same bits on every rank, rank 0's gathered V's f64 true
+              residual <= 2 tol, the first 10 residual estimates within
+              1e-8 of phase 22's compiled run and the count within 15%
+              of it, phase 28 (a)'s eager wall beside it; (c) mesh_schur
+              (b)'s side-96 DAE through ``distribute_schur`` compiled,
+              iterations within 15% of the one-process compiled run on
+              the same reduction, kernel #4's launches per rank, the
+              reduced equation's true residual <= 2 tol; (d) a one-rank
+              NCCL group on cuda:0 (``--worker nccl1``): the problem
+              compiled (the collectives captured, none a host step, the
+              program's host steps those of phase 22's) and eager at
+              full capacity, the same bits; (e) (a)-(c) over NCCL, one
+              card per rank, where the cards reach the rank count; else
+              one line saying why it was not run.
 
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  ``--only`` runs env, build and the named
-phases of 8-28 and stops there (no kernel table, no last line); a
+phases of 8-29 and stops there (no kernel table, no last line); a
 compiled phase then runs its eager counterpart itself.
 """
 
@@ -255,8 +281,11 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 # the eager runs' lines that the compiled phases (21-24) compare with,
 # filled by the phases that run them
 EAGER = {}
-# the compiled runs that phase 27 compares with, filled by phase 24
+# the compiled runs that phase 27 compares with, filled by phase 24, and
+# phase 29's one-process references, filled by phase 22
 COMPILED = {}
+# phase 28 (a)'s line, which phase 29 (b) prints its wall beside
+MULTIPROCESS = {}
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}  # outside tensor cores
 PEAK_BF16_FLOPS = 989e12    # dense bf16 on the tensor cores
 TOL = {"float32": 1e-5, "float64": 1e-12}
@@ -2018,7 +2047,8 @@ def dia_branches_in_graph(torch, spmm, gen, reps=200):
 
 # the calls the recorded iteration puts inside its graph segments
 CAPTURED_CALLS = ("cholesky_ex", "solve_ex", "inv_ex", "slogdet",
-                  "solve_triangular", "argsort", "randn_registered")
+                  "solve_triangular", "argsort", "randn_registered",
+                  "nccl_all_gather")
 
 
 def capture_audit():
@@ -2101,6 +2131,7 @@ def run_compiled_phases(torch, rt, spmm, em, wm, refine_mod, gen, only,
                                   OPTS64, True, mesh=mesh)
         comp, _ = run_solve(torch, rt, spmm, "compiled_mesh_solve", 256,
                             f64, OPTS64, True, mesh=mesh, compiled=True)
+        COMPILED["mesh_solve"] = comp
         # held to the unsharded eager run at full capacity (the mesh
         # computes the unsharded arithmetic bit for bit, PR 4)
         full, comp_f64 = compiled_f64
@@ -2398,8 +2429,9 @@ MP_TIMEOUT_S = 600    # a worker's limit; a collective's own limit is 300 s
 # residual history over its first RESVEC_HEAD iterations, where the
 # trajectories have not yet parted, to MP_HISTORY_RTOL, and its count to
 # within MP_ITER_BAND of the one-process count (the spread seen, -3.2% to
-# +9.3%, with room); the spread is measured again in every run
-# (``rounding_spread``).
+# +9.3%, with room); the spread is measured again under ``--only
+# multiprocess`` (``rounding_spread``), and not in a whole run, which
+# phase 29 would otherwise take past 650 s.
 RESVEC_HEAD = 10
 MP_HISTORY_RTOL = 1e-8
 MP_ITER_BAND = 0.15
@@ -2450,6 +2482,48 @@ def collective_costs(torch, comm, reps=200):
     return out
 
 
+def mesh_solve_problem(torch, rt, dev, side=256):
+    """mesh_solve's problem (phase 15) on ``dev``: (lap, md, b, A, M)."""
+    from rails_tpu_torch.models.problems import laplacian2_sparse
+
+    n = side * side
+    rng = np.random.default_rng(0)
+    lap = laplacian2_sparse(side)
+    # phase_scale builds M and B at float32 (run_solve's rounded inputs)
+    md = rng.uniform(0.5, 1.5, n).astype(np.float32).astype(np.float64)
+    b = rng.uniform(0, 1, (n, 8)).astype(np.float32).astype(np.float64)
+    aop = rt.sparse_from_scipy(lap, fmt="dia", dtype=torch.float64,
+                               is_symmetric=True, device=dev)
+    mop = rt.DiagonalOperator(torch.from_numpy(md).to(dev, torch.float64),
+                              device=dev)
+    return lap, md, b, aop, mop
+
+
+def halo_kernel_check(torch, spmm, solver, mesh, seed, dev):
+    """Kernel #3 on this rank's shard (the solver's own payload), a
+    random x of its rows and the halos from the neighbouring ranks
+    (zeros at the mesh's ends), against its plain version: (max |dy|,
+    max |y|)."""
+    from rails_tpu_torch.parallel.halo_spmm import process_halos
+
+    f64 = torch.float64
+    shard = solver.A._fwd_shards[0]
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.rand((shard.data.shape[1], 8), generator=gen, dtype=f64,
+                   device=dev)
+    span = max(abs(o) for o in shard.offsets)
+    hl, hh = process_halos(x, span, span, mesh)
+    zeros = torch.zeros((span, 8), dtype=f64, device=dev)
+    hl = zeros if hl is None else hl
+    hh = zeros if hh is None else hh
+    y = spmm.dia_spmm_halo(shard.data, shard.offsets_t, x, hl, hh,
+                           offsets=shard.offsets)
+    sync(torch, dev)
+    ref = spmm.dia_spmm_halo_reference(shard.data, shard.offsets_t, x, hl,
+                                       hh)
+    return (y - ref).abs().max().item(), ref.abs().max().item()
+
+
 def mp_solve_worker(coordinator, pid, nproc, out_path, device, backend,
                     side=256):
     """Phase 28 (a) in one worker process: mesh_solve's problem (phase 15)
@@ -2461,26 +2535,16 @@ def mp_solve_worker(coordinator, pid, nproc, out_path, device, backend,
     import torch
 
     import rails_tpu_torch as rt
-    from rails_tpu_torch.models.problems import laplacian2_sparse
     from rails_tpu_torch.parallel import multihost
-    from rails_tpu_torch.parallel.halo_spmm import process_halos
     from rails_tpu_torch.sparse import spmm
 
     comm = multihost.initialize(coordinator, nproc, pid, device=device,
                                 backend=backend, timeout_s=300)
     mesh = rt.make_mesh()
     dev = comm.device
-    f64 = torch.float64
-    n = side * side
-    rng = np.random.default_rng(0)
-    lap = laplacian2_sparse(side)
-    # phase_scale builds M and B at float32 (run_solve's rounded inputs)
-    md = rng.uniform(0.5, 1.5, n).astype(np.float32).astype(np.float64)
-    b = rng.uniform(0, 1, (n, 8)).astype(np.float32).astype(np.float64)
-    aop = rt.sparse_from_scipy(lap, fmt="dia", dtype=f64, is_symmetric=True,
-                               device=dev)
-    mop = rt.DiagonalOperator(torch.from_numpy(md).to(dev, f64), device=dev)
-    solver = rt.LyapunovSolver(aop, b, mop, dtype=f64, mesh=mesh, **OPTS64)
+    lap, md, b, aop, mop = mesh_solve_problem(torch, rt, dev, side)
+    solver = rt.LyapunovSolver(aop, b, mop, dtype=torch.float64, mesh=mesh,
+                               **OPTS64)
     applies = count_applies(solver.A)
     walls = []
     sync(torch, dev)
@@ -2501,25 +2565,8 @@ def mp_solve_worker(coordinator, pid, nproc, out_path, device, backend,
     staged = comm.stats.staged_bytes - staged0
     half = len(walls) // 2
     per_it = (walls[-1] - walls[half]) / max(1, len(walls) - 1 - half)
-    # kernel #3 on this rank's shard: the solver's own payload, a random
-    # x of its rows, the halos from the neighbouring ranks (zeros at the
-    # mesh's ends)
-    shard = solver.A._fwd_shards[0]
-    gen = torch.Generator(dev).manual_seed(100 + pid)
-    x = torch.rand((shard.data.shape[1], 8), generator=gen, dtype=f64,
-                   device=dev)
-    span = max(abs(o) for o in shard.offsets)
-    hl, hh = process_halos(x, span, span, mesh)
-    zeros = torch.zeros((span, 8), dtype=f64, device=dev)
-    hl = zeros if hl is None else hl
-    hh = zeros if hh is None else hh
-    y = spmm.dia_spmm_halo(shard.data, shard.offsets_t, x, hl, hh,
-                           offsets=shard.offsets)
-    sync(torch, dev)
-    ref = spmm.dia_spmm_halo_reference(shard.data, shard.offsets_t, x, hl,
-                                       hh)
-    err = (y - ref).abs().max().item()
-    scale = ref.abs().max().item()
+    err, scale = halo_kernel_check(torch, spmm, solver, mesh, 100 + pid,
+                                   dev)
     vfull = comm.gather_rows(v)
     costs = collective_costs(torch, comm)
     out = {"rank": pid, "processes": nproc, "backend": comm.backend,
@@ -2541,7 +2588,8 @@ def mp_solve_worker(coordinator, pid, nproc, out_path, device, backend,
            "resvec_head": [float(r) for r in info.resvec[:RESVEC_HEAD]],
            "collective_costs_us": costs}
     if vfull is not None:
-        out["res_true_f64"] = true_residual(lap, md, b, vfull, t, rng)
+        out["res_true_f64"] = true_residual(lap, md, b, vfull, t,
+                                            np.random.default_rng(0))
     multihost.shutdown()
     with open(out_path, "w") as f:
         json.dump(out, f)
@@ -2599,15 +2647,19 @@ def mp_cli_worker(coordinator, pid, nproc, out_path, directory):
 
 
 def worker_main(argv):
-    """``chip_smoke.py --worker solve|cli COORDINATOR PID NPROC OUT ...``:
-    one process of phase 28 (started by ``run_multiprocess``)."""
+    """``chip_smoke.py --worker solve|cli|compiled|nccl1 COORDINATOR PID
+    NPROC OUT ...``: one process of phase 28 (``run_multiprocess``) or
+    phase 29 (``run_multiprocess_compiled``)."""
     kind, coordinator, pid, nproc, out_path, *rest = argv
-    if kind == "solve":
+    if kind in ("solve", "compiled"):
         device, backend = rest
-        mp_solve_worker(coordinator, int(pid), int(nproc), out_path,
-                        None if device == "auto" else device, backend)
+        worker = mp_solve_worker if kind == "solve" else mpc_worker
+        worker(coordinator, int(pid), int(nproc), out_path,
+               None if device == "auto" else device, backend)
     elif kind == "cli":
         mp_cli_worker(coordinator, int(pid), int(nproc), out_path, rest[0])
+    elif kind == "nccl1":
+        mpc_nccl_worker(coordinator, out_path)
     else:
         raise SystemExit(f"unknown worker {kind!r}")
 
@@ -2721,9 +2773,9 @@ def run_multiprocess(torch, rt, spmm, em, only, eager):
         ref, _ = run_solve(torch, rt, spmm, "mesh_solve", 256,
                            torch.float64, OPTS64, True, mesh=mesh)
     # the count's spread under rounding-level changes of the one-process
-    # run's input (see MP_ITER_BAND)
+    # run's input (see MP_ITER_BAND), under --only only
     spread = {"b_scale": [1.0], "iters": [ref["iters"]]}
-    for scale in (1.0 + 1e-15, 1.0 - 1e-15):
+    for scale in () if only is None else (1.0 + 1e-15, 1.0 - 1e-15):
         o, _ = run_solve(torch, rt, spmm, "mesh_solve_b_scaled", 256,
                          torch.float64, OPTS64, True, mesh=mesh,
                          b_scale=scale)
@@ -2740,6 +2792,7 @@ def run_multiprocess(torch, rt, spmm, em, only, eager):
         case_a = mp_solve_summary(ranks, ref, "a: mesh_solve, gloo")
         case_a["phase_wall_s"] = time.perf_counter() - t0
         cases.append(case_a)
+        MULTIPROCESS["a"] = case_a
         # ---- (b)
         t0 = time.perf_counter()
         ref_b = eager.get("mesh_schur")
@@ -2819,6 +2872,460 @@ def run_multiprocess(torch, rt, spmm, em, only, eager):
           "cases": cases, "wall_s": time.perf_counter() - t_phase})
     return {"dia_spmm_halo": [r["dia_spmm_halo_launches"] for r in ranks],
             "ell_spmm": [r["ell_spmm_launches"] for r in ranks_b]}
+
+
+# ----------------------------------------------------------------------
+# phase 29: solve(compiled=True) across processes
+# ----------------------------------------------------------------------
+MPC_MAXIT_A = 60     # (a): the iterations held to eager bit for bit
+MPC_AUDIT = ("nccl_all_gather", "gloo_all_gather_staged")
+
+
+def ranks_agree(torch, comm, *arrays):
+    """Whether every rank holds the same bits of ``arrays`` (an
+    allgather of 8 bytes of their hash)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    d = torch.from_numpy(np.frombuffer(h.digest()[:8], dtype=np.int64)
+                         .copy()).to(comm.device)
+    got = comm.allgather_many([d])[0]
+    return bool((got == got[0]).all())
+
+
+def info_bits(v, t, info):
+    """What every rank must hold bit for bit: T, the counts, res and
+    resvec."""
+    return (t.detach().cpu().numpy(),
+            np.array([info.iter, info.status, info.mvps, v.shape[1]]),
+            np.array([info.res]), np.asarray(info.resvec))
+
+
+def program_collectives(prog):
+    """(captured, host-step) collective calls of one pass through a
+    recorded program (``engine.describe``), its switch branches
+    included; (0, 0) where nothing was recorded."""
+    if prog is None:
+        return 0, 0
+    cap, host = prog["captured_collectives"], prog["host_collectives"]
+    for br in prog["branches"]:
+        c, h = program_collectives(br)
+        cap, host = cap + c, host + h
+    return cap, host
+
+
+def engine_line(info, comm_delta=(0, 0, 0)):
+    """A compiled run's costs per iteration, the collectives' route and
+    counts among them: the calls, bytes sent and bytes staged that
+    ``comm.stats`` gained over the solve (``comm_delta``; replayed
+    segments add their captured calls there, and the chunk reads' rank
+    checks and the set-up count too), and the recorded program's split
+    into captured and host-step collectives."""
+    e = info.engine
+    n = max(info.iter, 1)
+    captured, host = program_collectives(e["program"])
+    return {**{k: e[k] for k in (
+        "collective_route", "segments_per_iter", "host_steps_per_iter",
+        "host_reads_per_iter", "launches_per_iter", "capture_s",
+        "captured", "program")},
+        "collectives_per_iter": comm_delta[0] / n,
+        "collective_bytes_per_iter": comm_delta[1] / n,
+        "staged_bytes_per_iter": comm_delta[2] / n,
+        "program_captured_collectives": captured,
+        "program_host_collectives": host}
+
+
+def comm_counts(mesh):
+    """The mesh's communicator's (calls, bytes, staged bytes) so far;
+    zeros in one process."""
+    return (0, 0, 0) if mesh.comm is None else mesh.comm.stats.counts()
+
+
+def mpc_against_eager(torch, rt, mesh, dev, opts, problem):
+    """(a) and (d): the problem through ``solve(compiled=True)`` and
+    through the eager solver at full capacity on these ranks: both
+    ways' iterations, status and wall, whether they are the same bits
+    (iterations, resvec, T, this rank's V), and the compiled run's
+    costs."""
+    _, _, b, aop, mop = problem
+    runs = []
+    for compiled in (True, False):
+        solver = rt.LyapunovSolver(aop, b, mop, dtype=torch.float64,
+                                   mesh=mesh, **opts)
+        sync(torch, dev)
+        c0 = comm_counts(mesh)
+        t0 = time.perf_counter()
+        if compiled:
+            out = solver.solve(compiled=True)
+        else:
+            with full_capacity():
+                out = solver.solve()
+        sync(torch, dev)
+        runs.append((out, time.perf_counter() - t0,
+                     tuple(a - b for a, b in zip(comm_counts(mesh), c0))))
+    ((vc, tc, ic), wc, dc), ((ve, te, ie), we, _) = runs
+    return {"iters": {"compiled": ic.iter, "eager": ie.iter},
+            "status": {"compiled": ic.status, "eager": ie.status},
+            "wall_s": {"compiled": wc, "eager": we},
+            "s_per_iter": {"compiled": wc / max(ic.iter, 1),
+                           "eager": we / max(ie.iter, 1)},
+            "same_bits": bool(
+                ic.iter == ie.iter and ic.status == ie.status
+                and np.array_equal(ic.resvec, ie.resvec)
+                and torch.equal(tc, te) and torch.equal(vc, ve)),
+            **engine_line(ic, dc)}
+
+
+def mpc_worker(coordinator, pid, nproc, out_path, device, backend):
+    """Phase 29 (a)-(c) in one worker process, this rank one shard:
+    (a) mesh_solve's problem for MPC_MAXIT_A iterations compiled and
+    eager at full capacity; (b) the problem compiled to tol, counts
+    reset just before ``solve()`` and read just after, kernel #3 on the
+    rank's shard against its plain version, rank 0 holding the gathered
+    V's f64 true residual; (c) mesh_schur (b)'s DAE through
+    ``distribute_schur``, compiled, kernel #4's launches counted the
+    same way, rank 0 holding the reduced equation's true residual.
+    Writes this rank's line as JSON to ``out_path``."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+
+    import rails_tpu_torch as rt
+    from rails_tpu_torch.parallel import multihost
+    from rails_tpu_torch.parallel.schur_dist import (
+        distribute_schur, pad_system)
+    from rails_tpu_torch.sparse import ell_spmm as em
+    from rails_tpu_torch.sparse import spmm
+
+    comm = multihost.initialize(coordinator, nproc, pid, device=device,
+                                backend=backend, timeout_s=300)
+    mesh = rt.make_mesh()
+    dev = comm.device
+    f64 = torch.float64
+    prob = mesh_solve_problem(torch, rt, dev)
+    out = {"rank": pid, "processes": nproc, "backend": comm.backend,
+           "device": str(dev), "shards": mesh.size}
+    # ---- (a)
+    t0 = time.perf_counter()
+    out["a"] = mpc_against_eager(torch, rt, mesh, dev,
+                                 dict(OPTS64, maxit=MPC_MAXIT_A), prob)
+    out["a"]["case_wall_s"] = time.perf_counter() - t0
+    # ---- (b)
+    lap, md, b, aop, mop = prob
+    solver = rt.LyapunovSolver(aop, b, mop, dtype=f64, mesh=mesh, **OPTS64)
+    marks = []      # (iteration, wall) at each chunk read
+    sync(torch, dev)
+    c0 = comm.stats.counts()
+    spmm.dia_spmm.launches = 0
+    spmm.dia_spmm_halo.launches = 0
+    t0 = time.perf_counter()
+    v, t, info = solver.solve(
+        compiled=True,
+        progress=lambda it, wall, res: marks.append((it, wall)))
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    halo_launches = spmm.dia_spmm_halo.launches
+    dia_launches = spmm.dia_spmm.launches
+    calls, sent, staged = (a - b for a, b in zip(comm.stats.counts(), c0))
+    iters = max(info.iter, 1)
+    (i0, w0), (i1, w1) = marks[len(marks) // 2], marks[-1]
+    err, scale = halo_kernel_check(torch, spmm, solver, mesh, 100 + pid,
+                                   dev)
+    line = {"iters": info.iter, "status": info.status, "res": info.res,
+            "rank_v": int(v.shape[1]), "local_rows": int(v.shape[0]),
+            "wall_s": wall, "s_per_iter": wall / iters,
+            "s_per_iter_second_half": (w1 - w0) / max(1, i1 - i0),
+            "solve_collectives": calls,
+            "solve_bytes_sent_per_iter": sent / iters,
+            "solve_host_staged_bytes_per_iter": staged / iters,
+            "dia_spmm_halo_launches": halo_launches,
+            "dia_spmm_launches": dia_launches,
+            "halo_kernel_max_abs_err": err, "halo_kernel_max_abs_y": scale,
+            "halo_kernel_ok": err <= TOL["float64"] * scale,
+            "ranks_same_bits": ranks_agree(torch, comm,
+                                           *info_bits(v, t, info)),
+            "resvec_head": [float(r) for r in info.resvec[:RESVEC_HEAD]],
+            "tol": OPTS64["tol"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)
+            if dev.type == "cuda" else None,
+            **engine_line(info, (calls, sent, staged))}
+    vfull = comm.gather_rows(v)
+    if vfull is not None:
+        line["res_true_f64"] = true_residual(lap, md, b, vfull, t,
+                                             np.random.default_rng(0))
+    out["b"] = line
+    del solver, v, vfull, prob
+    torch.cuda.empty_cache()
+    # ---- (c)
+    a, mdd, bd = laplacian_dae(MESH_CLI_SIDE)
+    a, m_p, bd, _ = pad_system(a, sp.diags(mdd).tocsr(), bd, mesh.size)
+    md_p = np.asarray(m_p.diagonal()).ravel()
+    red = rt.schur_reduce(a, m_p, bd, dtype=f64, device=dev)
+    op = distribute_schur(red, mesh)
+    solver = rt.LyapunovSolver(op, red.bs, red.ms, mesh=mesh, dtype=f64,
+                               **CLI_OPTS)
+    sync(torch, dev)
+    em.ell_spmm.launches = 0
+    c0 = comm.stats.counts()
+    t0 = time.perf_counter()
+    v, t, info = solver.solve(compiled=True)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    c_delta = tuple(a - b for a, b in zip(comm.stats.counts(), c0))
+    line = {"operator": type(op).__name__, "n2": red.n2,
+            "iters": info.iter, "status": info.status,
+            "wall_s": wall, "s_per_iter": wall / max(info.iter, 1),
+            "ell_spmm_launches": em.ell_spmm.launches,
+            "ranks_same_bits": ranks_agree(torch, comm,
+                                           *info_bits(v, t, info)),
+            "tol": CLI_OPTS["tol"], **engine_line(info, c_delta)}
+    vfull = comm.gather_rows(v)
+    if vfull is not None:
+        _, i2, blk = schur_blocks(a, md_p)
+        lu = spla.splu(blk["A11"].tocsc())
+        line["res_true_f64"] = schur_residual(
+            blk, lu, md_p[i2], bd[i2], vfull.cpu().double().numpy(),
+            t.cpu().double().numpy())
+    out["c"] = line
+    multihost.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def mpc_nccl_worker(coordinator, out_path):
+    """Phase 29 (d) in one worker process: a one-rank NCCL group on
+    cuda:0 and a ``RowComm`` over it, built as ``multihost.initialize``
+    builds one for N ranks (``initialize`` is a no-op for one process),
+    and mesh_solve's problem compiled and eager at full capacity on its
+    one-shard mesh."""
+    import torch
+    import torch.distributed as dist
+
+    import rails_tpu_torch as rt
+    from rails_tpu_torch.parallel.comm import RowComm
+    from rails_tpu_torch.parallel.mesh import Mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://{coordinator}",
+                            world_size=1, rank=0)
+    comm = RowComm(None, 0, 1, dev, "nccl")
+    mesh = Mesh([dev], comm)
+    line = mpc_against_eager(torch, rt, mesh, dev, OPTS64,
+                             mesh_solve_problem(torch, rt, dev))
+    line.update({"processes": 1, "backend": comm.backend,
+                 "device": str(dev), "shards": mesh.size,
+                 "comm_stats": comm.stats.as_dict()})
+    dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(line, f)
+
+
+def mpc_schur_reference(torch, rt):
+    """(c)'s one-process reference: the same reduction through
+    ``distribute_schur`` on MP_RANKS shards of cuda:0, compiled."""
+    import scipy.sparse as sp
+
+    from rails_tpu_torch.parallel.schur_dist import (
+        distribute_schur, pad_system)
+
+    mesh = rt.make_mesh(devices=["cuda:0"] * MP_RANKS)
+    a, mdd, bd = laplacian_dae(MESH_CLI_SIDE)
+    a, m_p, bd, _ = pad_system(a, sp.diags(mdd).tocsr(), bd, mesh.size)
+    red = rt.schur_reduce(a, m_p, bd, dtype=torch.float64)
+    solver = rt.LyapunovSolver(distribute_schur(red, mesh), red.bs, red.ms,
+                               mesh=mesh, dtype=torch.float64, **CLI_OPTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, info = solver.solve(compiled=True)
+    torch.cuda.synchronize()
+    return {"iters": info.iter, "status": info.status,
+            "wall_s": time.perf_counter() - t0, **engine_line(info)}
+
+
+def audit_rows(names):
+    """Rows of ``capture_audit``, each in a process of its own, all
+    started together."""
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "rails_tpu_torch.capture_audit", "--one",
+         name], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in names}
+    rows = {}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        if not lines:
+            raise RuntimeError(f"capture_audit --one {name} printed no row: "
+                               f"{out[-2000:]}{err[-2000:]}")
+        rows[name] = json.loads(lines[-1])
+    return rows
+
+
+def host_step_shape(prog):
+    """A recorded program's host steps, top level and per branch."""
+    return (prog["host_steps"],
+            [None if b is None else host_step_shape(b)
+             for b in prog["branches"]])
+
+
+def mpc_summary(ranks, ref, ref_c, label):
+    """Phase 29 (a)-(c)'s lines from their ranks' lines; raises on any
+    fault.  ``ref``: the one-process compiled mesh_solve (phase 22);
+    ``ref_c``: the one-process compiled run on (c)'s reduction."""
+    faults = []
+    a = [r["a"] for r in ranks]
+    case_a = {"case": f"a: capture against eager, {label}",
+              "maxit": MPC_MAXIT_A, "ranks": a}
+    if not all(x["same_bits"] for x in a) or \
+            len({x["iters"]["compiled"] for x in a}) != 1:
+        faults.append("(a) compiled and eager at full capacity differ")
+    if any(x["program_host_collectives"] <= 0
+           or x["program_captured_collectives"] != 0
+           or not x["captured"] for x in a) and label == "gloo":
+        faults.append("(a) gloo's collectives were not host steps of a "
+                      "captured program")
+    b = [r["b"] for r in ranks]
+    head = np.asarray(ref["resvec_head"])
+    mine = np.asarray(b[0]["resvec_head"])[:head.size]
+    case_b = {"case": f"b: mesh_solve compiled to tol, {label}",
+              "ranks": b, "iters": b[0]["iters"],
+              "res_true_f64": b[0].get("res_true_f64"), "tol": b[0]["tol"],
+              "wall_s": max(x["wall_s"] for x in b),
+              "s_per_iter": max(x["s_per_iter"] for x in b),
+              "resvec_head_max_rel_diff": float(
+                  np.max(np.abs(mine - head) / np.abs(head)))
+              if mine.size == head.size else None,
+              "compiled_mesh_solve_iters": ref["iters"],
+              "compiled_mesh_solve_wall_s": ref["wall_s"],
+              "multiprocess_a_eager": {
+                  k: MULTIPROCESS["a"][k] for k in ("iters", "wall_s",
+                                                    "s_per_iter")}
+              if "a" in MULTIPROCESS else None}
+    if len({x["iters"] for x in b}) != 1 or any(x["status"] != 0
+                                                for x in b):
+        faults.append("(b) iterations or status differ across ranks, or "
+                      "not converged")
+    if not all(x["ranks_same_bits"] for x in b):
+        faults.append("(b) T and info are not the same bits on every rank")
+    if case_b["resvec_head_max_rel_diff"] is None or \
+            case_b["resvec_head_max_rel_diff"] > MP_HISTORY_RTOL:
+        faults.append(f"(b) the first {RESVEC_HEAD} residual estimates "
+                      f"differ from compiled mesh_solve's by more than "
+                      f"{MP_HISTORY_RTOL}")
+    if abs(case_b["iters"] - ref["iters"]) > MP_ITER_BAND * ref["iters"]:
+        faults.append(f"(b) iterations more than {MP_ITER_BAND:.0%} from "
+                      f"compiled mesh_solve's")
+    if case_b["res_true_f64"] is None or \
+            case_b["res_true_f64"] > 2 * case_b["tol"]:
+        faults.append("(b) true residual above 2 tol")
+    for x, r in zip(b, ranks):
+        if x["dia_spmm_launches"] != 0 or x["dia_spmm_halo_launches"] <= 0:
+            faults.append(f"(b) rank {r['rank']}: A's applies did not go "
+                          f"through the halo kernel")
+        if not x["halo_kernel_ok"]:
+            faults.append(f"(b) rank {r['rank']}: kernel #3 disagrees with "
+                          f"its plain version on the rank's shard")
+    c = [r["c"] for r in ranks]
+    case_c = {"case": f"c: distributed Schur DAE compiled, {label}",
+              "side": MESH_CLI_SIDE, "ranks": c, "iters": c[0]["iters"],
+              "res_true_f64": c[0].get("res_true_f64"), "tol": c[0]["tol"],
+              "wall_s": max(x["wall_s"] for x in c),
+              "one_process": ref_c}
+    if any(x["operator"] != "DistributedSchurOperator" or x["status"] != 0
+           or not x["ranks_same_bits"] for x in c) or \
+            len({x["iters"] for x in c}) != 1:
+        faults.append("(c) not a converged DistributedSchurOperator run "
+                      "with the same bits on every rank")
+    if abs(case_c["iters"] - ref_c["iters"]) > \
+            MP_ITER_BAND * ref_c["iters"]:
+        faults.append(f"(c) iterations more than {MP_ITER_BAND:.0%} from "
+                      f"the one-process compiled run's")
+    if case_c["res_true_f64"] is None or \
+            case_c["res_true_f64"] > 2 * case_c["tol"]:
+        faults.append("(c) true residual above 2 tol")
+    if any(x["ell_spmm_launches"] <= 0 for x in c):
+        faults.append("(c) a rank never launched ell_spmm")
+    if faults:
+        raise AssertionError(f"multiprocess_compiled {label}: {faults}: "
+                             f"{[case_a, case_b, case_c]}")
+    return [case_a, case_b, case_c]
+
+
+def run_multiprocess_compiled(torch, rt, spmm, em, only):
+    """Phase 29: ``solve(compiled=True)`` across processes.  (a)-(c) on
+    MP_RANKS processes of cuda:0 over gloo (the row collectives host
+    steps); (d) a one-rank NCCL group (the collectives captured) and the
+    capture audit's collective rows; (e) (a)-(c) over NCCL where the
+    cards reach the rank count.  Returns each rank's launches of kernels
+    #3 (in (b)) and #4 (in (c)), or None when the phase is skipped."""
+    if not (only is None or "multiprocess_compiled" in only):
+        return None
+    t_phase = time.perf_counter()
+    ref = COMPILED.get("mesh_solve")
+    if ref is None:   # phase 22 was skipped: its compiled run here
+        ref, _ = run_solve(torch, rt, spmm, "compiled_mesh_solve", 256,
+                           torch.float64, OPTS64, True,
+                           mesh=rt.make_mesh(devices=["cuda:0"] * MESH_ND),
+                           compiled=True)
+    ref_c = mpc_schur_reference(torch, rt)
+    torch.cuda.empty_cache()
+    audit = audit_rows(MPC_AUDIT)
+    if not audit["nccl_all_gather"].get("captured") or \
+            audit["gloo_all_gather_staged"].get("captured") is not False:
+        raise AssertionError(f"multiprocess_compiled: the collectives' "
+                             f"capture audit: {audit}")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ranks = start_workers("compiled", MP_RANKS, d, ["cuda:0", "gloo"])
+        cases = mpc_summary(ranks, ref, ref_c, "gloo")
+        cases[-1]["workers_wall_s"] = time.perf_counter() - t0
+        # ---- (d)
+        t0 = time.perf_counter()
+        (d_line,) = start_workers("nccl1", 1, d, [])
+        case_d = {"case": "d: one-rank NCCL group, captured collectives",
+                  **d_line, "compiled_mesh_solve_wall_s": ref["wall_s"],
+                  "compiled_mesh_solve_iters": ref["iters"],
+                  "compiled_mesh_solve_host_steps_per_iter":
+                      ref["host_steps_per_iter"],
+                  "capture_audit": audit,
+                  "phase_wall_s": time.perf_counter() - t0}
+        faults = []
+        if not d_line["same_bits"] or d_line["status"]["compiled"] != 0:
+            faults.append("compiled and eager at full capacity differ, or "
+                          "not converged")
+        if d_line["collective_route"] != "captured" or \
+                d_line["program_host_collectives"] != 0 or \
+                d_line["program_captured_collectives"] <= 0 or \
+                d_line["collectives_per_iter"] < \
+                d_line["program"]["captured_collectives"]:
+            faults.append("the collectives were not captured, or a "
+                          "collective was a host step")
+        if host_step_shape(d_line["program"]) != \
+                host_step_shape(ref["program"]):
+            faults.append("the program's host steps differ from the "
+                          "one-process compiled run's")
+        if faults:
+            raise AssertionError(f"multiprocess_compiled (d): {faults}: "
+                                 f"{case_d}")
+        cases.append(case_d)
+        # ---- (e)
+        cards = torch.cuda.device_count()
+        e_note = None
+        if cards >= MP_RANKS:
+            ranks_e = start_workers("compiled", MP_RANKS, d, ["auto", "nccl"])
+            cases.extend(mpc_summary(ranks_e, ref, ref_c, "nccl"))
+        else:
+            e_note = (f"(e) not run: {cards} card(s) for {MP_RANKS} ranks; "
+                      f"NCCL across processes needs a card per rank")
+            print(e_note, flush=True)
+    emit({"phase": "multiprocess_compiled", "e_not_run": e_note,
+          "iter_band": MP_ITER_BAND, "cases": cases,
+          "wall_s": time.perf_counter() - t_phase})
+    return {"dia_spmm_halo": [r["b"]["dia_spmm_halo_launches"]
+                              for r in ranks],
+            "ell_spmm": [r["c"]["ell_spmm_launches"] for r in ranks]}
 
 
 def wall_ms(torch, fn, reps):
@@ -3235,7 +3742,8 @@ NEW_PHASES = ("compare_wide", "timing_wide", "refined_acc", "refined_scale",
               "mesh_solve", "mesh_ell", "mesh_schur", "schur_lapack",
               "schur_native", "hub", "compiled_solve", "compiled_mesh",
               "compiled_refined", "compiled_continuation", "compiled_schur",
-              "examples", "continuation_full_capacity", "multiprocess")
+              "examples", "continuation_full_capacity", "multiprocess",
+              "multiprocess_compiled")
 
 
 def parse_only(argv):
@@ -3309,6 +3817,7 @@ def main():
                         EAGER)
     schur_launches = run_slice_phases(torch, rt, em, wm, only, EAGER)
     mp_launches = run_multiprocess(torch, rt, spmm, em, only, EAGER)
+    mpc_launches = run_multiprocess_compiled(torch, rt, spmm, em, only)
     if only is not None:
         return
 
@@ -3328,9 +3837,12 @@ def main():
     ell_row["hub_solve_launches"] = hub_launches
     ell_row["compiled_schur_launches"] = schur_launches
     ell_row["multiprocess_rank_launches"] = mp_launches["ell_spmm"]
+    ell_row["multiprocess_compiled_rank_launches"] = mpc_launches["ell_spmm"]
     halo_row = row("dia_spmm_halo", "rails_tpu_torch/csrc/dia_spmm_halo.cu",
                    "rails_tpu/sparse/spmm.py:414", *halo)
     halo_row["multiprocess_rank_launches"] = mp_launches["dia_spmm_halo"]
+    halo_row["multiprocess_compiled_rank_launches"] = \
+        mpc_launches["dia_spmm_halo"]
     emit({"kernels": [
         row("dia_spmm", "rails_tpu_torch/csrc/dia_spmm.cu",
             "rails_tpu/sparse/spmm.py:75", *earlier["dia"]),

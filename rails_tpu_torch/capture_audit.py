@@ -17,6 +17,14 @@ torch has conditional graph nodes (``begin_capture_to_if_node``).
 cuSOLVER's syevd, syevj and Xsyevd are called directly through ctypes
 with their workspace allocated before the capture, to tell the library
 apart from PyTorch's own ``info`` check.
+
+Two rows are the row collectives of a multi-process mesh
+(``parallel/comm.py::RowComm.allgather_many``), each on a one-rank group
+of its own: ``nccl_all_gather`` (``all_gather_into_tensor`` on an NCCL
+group: expected to capture and replay) and ``gloo_all_gather_staged``
+(a gloo gather of a CUDA tensor staged through pinned host memory:
+expected not to capture, hence a host step of the recorded iteration).
+They capture in the mode the engine uses for them (``thread_local``).
 """
 
 from __future__ import annotations
@@ -34,7 +42,9 @@ K, M = 184, 65536      # solve_f64's capacity and rows
 CALLS = ("eigh", "eigvalsh", "cusolver_syevd", "cusolver_syevj",
          "cusolver_xsyevd", "cholesky_ex", "solve_ex", "inv_ex",
          "lu_factor_ex", "slogdet", "solve_triangular", "lu_solve",
-         "argsort", "randn_registered")
+         "argsort", "randn_registered", "nccl_all_gather",
+         "gloo_all_gather_staged")
+COLLECTIVES = {"nccl_all_gather": "nccl", "gloo_all_gather_staged": "gloo"}
 
 
 def _cusolver():
@@ -52,11 +62,35 @@ def _cusolver():
     raise OSError("libcusolver not found")
 
 
+def _one_rank_comm(backend):
+    """A ``RowComm`` over a one-rank group of ``backend`` on cuda:0."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from rails_tpu_torch.parallel.comm import RowComm
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    return RowComm(None, 0, 1, dev, backend)
+
+
 def _case(name):
     """(setup, body) of one call at solve_f64's sizes."""
     import torch
 
     dev = torch.device("cuda")
+    if name in COLLECTIVES:
+        comm = _one_rank_comm(COLLECTIVES[name])
+        x = torch.randn(3 * 64, dtype=torch.float64, device=dev)
+        return (lambda: comm.allgather_many([x])[0]), None
+
     gen = torch.Generator(dev).manual_seed(0)
     a = torch.randn(K, K, dtype=torch.float64, device=dev, generator=gen)
     spd = a @ a.T + K * torch.eye(K, dtype=torch.float64, device=dev)
@@ -170,8 +204,9 @@ def audit_one(name):
     g = torch.cuda.CUDAGraph()
     if gen is not None:
         g.register_generator_state(gen)
+    mode = "thread_local" if name in COLLECTIVES else "global"
     try:
-        with torch.cuda.graph(g, stream=side):
+        with torch.cuda.graph(g, stream=side, capture_error_mode=mode):
             out = body()
     except Exception as e:  # the audit's answer, not a failure
         return {"call": name, "captured": False, "eager_ms": eager,
@@ -194,6 +229,10 @@ def audit_one(name):
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--one":
         print(json.dumps(audit_one(sys.argv[2])), flush=True)
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
         return
     import torch
 

@@ -53,8 +53,9 @@ class ContinuationSolver:
     row-sharded on it (``LyapunovSolver(mesh=...)``); on a multi-process
     mesh the carried basis is this process's rows, rotated by T's
     eigenvectors, which are the same on every process (T is replicated,
-    so ``_truncate_basis`` reduces nothing over the rows), and ``save``
-    writes the whole basis from rank 0."""
+    so ``_truncate_basis`` reduces nothing over the rows), each process
+    keeps its own engine cache for compiled steps, and ``save`` writes
+    the whole basis from rank 0."""
 
     def __init__(self, b, m=None, options: Optional[SolverOptions] = None,
                  mesh=None, *, device=None, draws=None,

@@ -47,6 +47,17 @@ gives.
 Launch counts: a kernel wrapper counts once when its launch is captured.
 The recorder takes that count back, keeps each segment's launches, and
 adds them to the wrapper's counter at every replay of the segment.
+
+Across processes (``comm``, a ``parallel/comm.py::RowComm``) each rank
+records and replays the same program on its own rows.  The row
+collectives route by the backend (``RowComm.route``): under NCCL they are
+captured in the segments, and the recorder keeps each segment's
+collective calls and bytes as it keeps launches, adding them to
+``comm.stats`` at every replay; under gloo each is a host step.  The
+Lanczos draws are the whole m rows, this rank's kept, so N processes
+draw what one draws.  Every chunk read gathers each rank's (iter, res,
+done) and raises on every rank when they differ: a captured program
+whose ranks took different branches would hang in its next collective.
 """
 
 from __future__ import annotations
@@ -97,6 +108,18 @@ def _add_counts(delta) -> None:
         w.launches += n
 
 
+def _comm_counts(comm) -> Tuple[int, int, int]:
+    """A row communicator's (calls, bytes, staged bytes) so far; zeros
+    without one."""
+    return (0, 0, 0) if comm is None else comm.stats.counts()
+
+
+def _set_comm_counts(comm, counts) -> None:
+    if comm is not None:
+        st = comm.stats
+        st.calls, st.bytes, st.staged_bytes = counts
+
+
 # the recorder whose capture is under way, None outside a capture and
 # inside a host step
 _ACTIVE: Optional["Recorder"] = None
@@ -122,7 +145,7 @@ def host_call(fn, *args):
 # ----------------------------------------------------------------------
 # lazily filled host caches of the kernel plans: derived from what the
 # structure already keys (offsets, tile windows, shapes)
-_SKIP = frozenset({"_plans"})
+_SKIP = frozenset({"_plans", "comm"})
 
 
 def _ours(obj) -> bool:
@@ -141,7 +164,9 @@ def structure(obj, pins: Optional[list] = None) -> tuple:
     the ELL tile windows, the wide payload's ``w``, the format tags),
     and anything else - a user's callable - by identity, appended to
     ``pins`` so the cache keeps it alive.  Tensor *values* are not
-    part of it: they are copied into the engine's clones."""
+    part of it: they are copied into the engine's clones.  A ``comm``
+    (the row communicator, whose ``stats`` change at every call) is
+    left out: the solver's key names its world size and backend."""
     out = []
     memo = {}
 
@@ -306,17 +331,18 @@ class DeviceState:
 # the recording: graph segments, host steps, switches
 # ----------------------------------------------------------------------
 class _Graph:
-    __slots__ = ("graph", "launches")
+    __slots__ = ("graph", "launches", "comm")
 
-    def __init__(self, graph, launches):
-        self.graph, self.launches = graph, launches
+    def __init__(self, graph, launches, comm):
+        self.graph, self.launches, self.comm = graph, launches, comm
 
 
 class _Host:
-    __slots__ = ("fn", "args", "outs", "single")
+    __slots__ = ("fn", "args", "outs", "single", "calls")
 
-    def __init__(self, fn, args, outs, single):
+    def __init__(self, fn, args, outs, single, calls):
         self.fn, self.args, self.outs, self.single = fn, args, outs, single
+        self.calls = calls      # collective calls of one run of fn
 
 
 class _Switch:
@@ -331,7 +357,11 @@ class EngineStats:
     """What one solve's iterations cost the host, counted where the
     work is issued: graph segments replayed, host steps run, switch
     codes read, kernel launches (our kernels), iterations, capture
-    seconds (0 when the engine came from the cache)."""
+    seconds (0 when the engine came from the cache).  Across processes
+    the route of the row collectives: ``"captured"``, ``"host step"``,
+    or ``"eager"`` where nothing records.  Their calls and bytes are
+    ``comm.stats`` (replayed segments add theirs there), and
+    ``describe`` gives each segment's and host step's."""
 
     iterations: int = 0
     segments: int = 0
@@ -340,6 +370,7 @@ class EngineStats:
     launches: int = 0
     capture_s: float = 0.0
     captured: bool = False
+    collective_route: Optional[str] = None
 
     def summary(self) -> dict:
         """The counts, and per iteration: graph segments replayed, host
@@ -362,6 +393,7 @@ class Recorder:
 
     def __init__(self, engine: "Engine"):
         self.engine = engine
+        self.comm = getattr(engine, "comm", None)
         self.capturing = False
         self.code = CODE_EXPAND
 
@@ -372,18 +404,21 @@ class Recorder:
             return fn(*args)
         self._end()
         _ACTIVE = None          # host_call inside fn: a plain call
-        before = _counts()
+        before, cbefore = _counts(), _comm_counts(self.comm)
         try:
             outs = fn(*args)
         finally:
             _ACTIVE = self
         single = isinstance(outs, torch.Tensor)
         static = tuple(o.clone() for o in ((outs,) if single else outs))
-        self._prog[-1].append(_Host(fn, args, static, single))
+        calls = _comm_counts(self.comm)[0] - cbefore[0]
+        self._prog[-1].append(_Host(fn, args, static, single, calls))
         if self._exec[-1]:
             self.engine.stats.host_steps += 1
             self.engine.stats.launches += sum(
                 a - b for a, b in zip(_counts(), before))
+        else:
+            _set_comm_counts(self.comm, cbefore)   # a branch not taken
         self._begin()
         return static[0] if single else static
 
@@ -446,6 +481,7 @@ class Recorder:
             # the iteration ends at its switch: drop the empty tail
             self._graph.capture_end()
             _set_counts(self._snap)
+            _set_comm_counts(self.comm, self._csnap)
         else:
             self._end()
         return self._prog[0]
@@ -454,19 +490,21 @@ class Recorder:
         eng = self.engine
         g = torch.cuda.CUDAGraph()
         g.register_generator_state(eng.gen)
-        self._snap = _counts()
+        self._snap, self._csnap = _counts(), _comm_counts(self.comm)
         self._after_switch = False
-        g.capture_begin(pool=eng.pool)
+        g.capture_begin(pool=eng.pool, capture_error_mode=eng.capture_mode)
         eng.segment_ticks.add_(1)       # no segment is empty
         self._graph = g
 
     def _end(self) -> None:
         g = self._graph
         g.capture_end()
-        after = _counts()
+        after, cafter = _counts(), _comm_counts(self.comm)
         delta = tuple(a - b for a, b in zip(after, self._snap))
+        cdelta = tuple(a - b for a, b in zip(cafter, self._csnap))
         _set_counts(self._snap)   # captured, not launched
-        node = _Graph(g, delta)
+        _set_comm_counts(self.comm, self._csnap)
+        node = _Graph(g, delta, cdelta)
         self._prog[-1].append(node)
         if self._exec[-1]:
             self.engine.replay_graph(node)
@@ -496,13 +534,17 @@ class Recorder:
 
 def describe(prog: list) -> dict:
     """Node counts of a recorded program: top-level graph segments and
-    host steps, and the same for each switch branch."""
-    out = {"graphs": 0, "host_steps": 0, "branches": []}
+    host steps, the collective calls captured in those segments and made
+    by those host steps, and the same for each switch branch."""
+    out = {"graphs": 0, "host_steps": 0, "captured_collectives": 0,
+           "host_collectives": 0, "branches": []}
     for node in prog:
         if isinstance(node, _Graph):
             out["graphs"] += 1
+            out["captured_collectives"] += node.comm[0]
         elif isinstance(node, _Host):
             out["host_steps"] += 1
+            out["host_collectives"] += node.calls
         else:
             out["branches"] = [None if b is None else describe(b)
                                for b in node.branches]
@@ -522,19 +564,29 @@ class Engine:
     ``ds``: the ``DeviceState``.  ``build(view, ctx, ds, rec, draw)``
     returns the iteration (``LyapunovSolver._build_iterate``).  Dropping
     the engine (the solver that owns its cache, or the cache entry)
-    frees its graphs and with them their memory pool."""
+    frees its graphs and with them their memory pool.
+
+    ``comm``: the row communicator of a multi-process mesh (None for one
+    process); ``m``: the rows of the whole problem, ``own`` this rank's
+    [r0, r1) of them (None: all rows, one process)."""
 
     def __init__(self, view, ctx, ds: DeviceState, build, draw_rows: int,
-                 pins=()):
+                 pins=(), comm=None, m: Optional[int] = None, own=None):
         self.view, self.ctx, self.ds = view, ctx, ds
         self.pins = list(pins)      # what the key names by identity
         self.device = ds.V.device
         self.cuda = self.device.type == "cuda"
+        self.comm = comm
+        self.m = ds.V.shape[0] if m is None else m
+        self.own = own
+        # NCCL's host threads poll their own events while a capture is
+        # under way, which the global mode forbids
+        self.capture_mode = "thread_local" if comm is not None \
+            and comm.route == "captured" else "global"
         self.gen = torch.Generator(self.device)
-        m = ds.V.shape[0]
         self.draws = None if draw_rows <= 0 else torch.zeros(
-            (draw_rows, m), dtype=ds.V.dtype, device=self.device)
-        self.stats = EngineStats()
+            (draw_rows, ds.V.shape[0]), dtype=ds.V.dtype, device=self.device)
+        self.stats = self.new_stats()
         self.rec = Recorder(self)
         self.segment_ticks = torch.zeros((), dtype=torch.int64,
                                          device=self.device)
@@ -545,24 +597,33 @@ class Engine:
             self.stream = torch.cuda.Stream(self.device)
         self.iterate = build(view, ctx, ds, self.rec, self._draw)
 
+    def new_stats(self) -> EngineStats:
+        route = None
+        if self.comm is not None:
+            route = self.comm.route if self.cuda and CAPTURE else "eager"
+        return EngineStats(collective_route=route)
+
     def _draw(self) -> torch.Tensor:
         """The Lanczos start's normal draw: a row of the draws buffer
         when a ``draws`` hook fills it, else the engine's generator
         (registered with every graph segment; each solve sets it to the
-        state its initial draw left)."""
+        state its initial draw left), all m rows drawn and this rank's
+        kept."""
         ds = self.ds
-        m = ds.V.shape[0]
         if self.draws is not None:
             row = torch.remainder(ds.iter, self.draws.shape[0]).reshape(1)
-            return self.draws.index_select(0, row).reshape(m, 1)
-        return torch.randn((m, 1), generator=self.gen,
-                           dtype=ds.V.dtype, device=self.device)
+            return self.draws.index_select(0, row).reshape(-1, 1)
+        x = torch.randn((self.m, 1), generator=self.gen,
+                        dtype=ds.V.dtype, device=self.device)
+        return x if self.own is None else x[self.own[0]:self.own[1]]
 
     def replay_graph(self, node: _Graph) -> None:
         node.graph.replay()
         _add_counts(node.launches)
         self.stats.segments += 1
         self.stats.launches += sum(node.launches)
+        if self.comm is not None:
+            self.comm.stats.add(node.comm)
 
     def step(self) -> int:
         """One iteration; returns its switch code."""
@@ -588,15 +649,35 @@ class Engine:
 
     def fill_draws(self, hook, it0: int, n: int, dtype) -> None:
         """Rows for iterations it0 .. it0 + n - 1 from the ``draws``
-        hook (row ``iter % rows``), one call per iteration, in order."""
-        rows, m = self.draws.shape
+        hook (row ``iter % rows``), one call per iteration, in order:
+        each call asks for all m rows, this rank's are kept."""
+        rows, m = self.draws.shape[0], self.m
         for j in range(n):
             x = hook("lanczos_normal", (m, 1), dtype, self.device)
             x = torch.as_tensor(x, dtype=dtype).reshape(m)
+            if self.own is not None:
+                x = x[self.own[0]:self.own[1]]
             self.draws[(it0 + j) % rows].copy_(x)
 
     def read(self) -> Tuple[int, float, bool]:
+        """(iter, res, done) of the state; across processes checked to
+        be the same bits on every rank, else every rank raises."""
         ds = self.ds
-        it, res, done = torch.stack(
-            [ds.iter.double(), ds.res.double(), ds.done.double()]).tolist()
+        vals = torch.stack(
+            [ds.iter.double(), ds.res.double(), ds.done.double()])
+        if self.comm is not None:
+            self._check_in_step(vals)
+        it, res, done = vals.tolist()
         return int(it), res, bool(done)
+
+    def _check_in_step(self, vals: torch.Tensor) -> None:
+        got = self.comm.allgather_many([vals])[0].cpu()
+        bits = got.view(torch.int64)
+        off = (bits != bits[0]).any(dim=1).nonzero().flatten().tolist()
+        if off:
+            rows = "; ".join(
+                f"rank {r}: iter {int(i)}, res {x!r}, done {bool(d)}"
+                for r, (i, x, d) in enumerate(got.tolist()))
+            raise RuntimeError(
+                f"ranks out of step at a chunk read: rank(s) {off} differ "
+                f"from rank 0 ({rows}); every rank raises")

@@ -25,7 +25,9 @@ at full capacity with its control scalars on the device, one iteration
 on the card and replayed, the host reading the state once per chunk of
 ``timevec_chunk`` iterations (``core/engine.py`` says which calls stay
 on the host between graph segments).  Engines are cached under
-``_engine_key`` in ``engine_cache``.
+``_engine_key`` in ``engine_cache``.  Across processes the same
+recording runs on every rank, its row collectives captured (NCCL) or
+host steps (gloo), and the ranks' chunk reads are checked to agree.
 
 ``precision='compensated'`` runs every m-length reduction through the
 error-free transforms of ``utils/compensated.py``, as the JAX package
@@ -374,12 +376,11 @@ class LyapunovSolver:
         device, at the full capacity from the start (the JAX package's
         ``while_loop`` engine): on the card recorded once into CUDA
         graphs and replayed, on the CPU run eagerly; the host reads the
-        state once per chunk (``core/engine.py``)."""
-        if compiled and self.comm is not None:
-            raise NotImplementedError(
-                "solve(compiled=True) across processes is not ported: "
-                "ROADMAP Queue 1 item 8 (the collectives inside the "
-                "recorded iteration); run it eagerly (compiled=False)")
+        state once per chunk (``core/engine.py``).  Across processes
+        each rank records and replays its own rows' iteration, the row
+        collectives captured in the graph segments under NCCL and run as
+        host steps under gloo; it returns this rank's rows of V and the
+        replicated T and info, as the eager path does."""
         if compiled:
             v, t, info = self._solve_compiled(progress)
         else:
@@ -454,11 +455,12 @@ class LyapunovSolver:
         dtype and device, the nullspace's shape (the JAX key records
         only whether there is one), b_sign's shape, the timevec chunk
         (the draws buffer's rows) and whether a draws hook fills it, the
-        mesh's shard count, and the operators' structure - format,
-        shapes, DIA offsets, ELL tile windows, the wide payload's w,
-        tags (``core/engine.py::structure``).  Objects known only by
-        identity (``inv_a``, a user's callable) go to ``pins``, which
-        the engine keeps alive."""
+        mesh's shard count, the communicator's world size and backend
+        (a rank's rows follow from m and the world), and the operators'
+        structure - format, shapes, DIA offsets, ELL tile windows, the
+        wide payload's w, tags (``core/engine.py::structure``).  Objects
+        known only by identity (``inv_a``, a user's callable) go to
+        ``pins``, which the engine keeps alive."""
         from rails_tpu_torch.core.engine import structure
 
         o = self.options
@@ -482,6 +484,8 @@ class LyapunovSolver:
                 None if self.b_sign is None else tuple(self.b_sign.shape),
                 self.draws is None,
                 None if self.mesh is None else self.mesh.size,
+                None if self.comm is None
+                else (self.comm.world, self.comm.backend),
                 structure(self.A, pins), structure(self.M, pins),
                 structure(self.B, pins))
 
@@ -530,8 +534,11 @@ class LyapunovSolver:
             if self.draws is not None:
                 rows = opt.timevec_chunk if opt.timevec_chunk > 0 \
                     else opt.maxit
+            m = self.A.shape[0]
+            own = None if self.comm is None else self.mesh.local_range(m)
             eng = Engine(view, ectx, DeviceState.like(st, opt.maxit),
-                         LyapunovSolver._build_iterate, rows, pins)
+                         LyapunovSolver._build_iterate, rows, pins,
+                         comm=self.comm, m=m, own=own)
             self._engine_cache[key] = eng
         return eng
 
@@ -552,8 +559,7 @@ class LyapunovSolver:
             eng.gen.set_state(ctx.gen.get_state())
 
     def _solve_compiled(self, progress):
-        from rails_tpu_torch.core.engine import (
-            CODE_DONE, EngineStats, describe)
+        from rails_tpu_torch.core.engine import CODE_DONE, describe
 
         opt = self.options
         m = self.A.shape[0]
@@ -563,7 +569,7 @@ class LyapunovSolver:
                 self._grow_state(st, ctx.cap_kb)
                 ctx.set_kb(ctx.cap_kb, m)
             eng = self._engine_for(st, ctx)
-            eng.stats = EngineStats()
+            eng.stats = eng.new_stats()
             caller = torch.cuda.current_stream(self.device) \
                 if eng.cuda else None
             if caller is not None:
@@ -1488,12 +1494,14 @@ def _host_orthonormalize(w, nullspace, m_op, drop_tol, comm=None):
 
 
 def solve(a, b, m=None, maxit=None, tol=None, options=None, compiled=False,
-          progress=None, *, device=None, draws=None, **opt_kwargs):
+          progress=None, *, device=None, draws=None, mesh=None,
+          **opt_kwargs):
     """Functional front-end mirroring MATLAB
     ``[V,T,res,iter,resvec,timevec,restart_data] = RAILSsolver(A,M,B,...)``
     with the argument order (A, B, M) of the C++ Solver ctor.
 
-    Returns (V, T, info).  Runs on ``device`` (default ``cuda``).
+    Returns (V, T, info).  Runs on ``device`` (default ``cuda``), or
+    row-sharded on ``mesh`` (``LyapunovSolver(mesh=...)``).
     """
     if options is None:
         if maxit is not None:
@@ -1501,5 +1509,6 @@ def solve(a, b, m=None, maxit=None, tol=None, options=None, compiled=False,
         if tol is not None:
             opt_kwargs["tol"] = tol
         options = SolverOptions(**opt_kwargs)
-    solver = LyapunovSolver(a, b, m, options, device=device, draws=draws)
+    solver = LyapunovSolver(a, b, m, options, mesh=mesh, device=device,
+                            draws=draws)
     return solver.solve(compiled=compiled, progress=progress)

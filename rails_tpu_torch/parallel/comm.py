@@ -14,8 +14,9 @@ Three kinds of operation cross processes:
   squares) is gathered and summed in rank order
   (``allreduce_many``), so every rank holds the same bits whatever the
   backend's own reduction order; several partials go in one call;
-- *neighbour halos*: rank r sends its first rows to r-1 and its last rows
-  to r+1 (``neighbour_halos``), a boundary rank receiving nothing;
+- *neighbour halos*: rank r takes rank r-1's last rows and rank r+1's
+  first rows (``neighbour_halos``), a boundary rank nothing, from one
+  all-gather of every rank's first and last rows;
 - *gathers*: every rank's rows, in rank order (``allgather_rows``,
   ``gather_rows``).
 
@@ -25,6 +26,22 @@ only: a CUDA tensor is copied into a pinned host buffer, sent, and copied
 back, here and nowhere else; ``stats`` counts the calls, the bytes and
 the bytes staged so.  A collective that fails or times out raises on
 every rank that takes part (``init_process_group``'s timeout).
+
+Inside a recorded iteration (``solve(compiled=True)`` on the card,
+``core/engine.py``) every collective of the iteration is a gather
+(``_allgather_flat``), and its route follows the backend, never switched
+silently (``route``):
+
+- ``nccl``: *captured*.  The gather is one ``all_gather_into_tensor``
+  into a buffer of the graph segment, so a segment holds its
+  collectives; a collective that does not capture raises.
+- ``gloo``: a *host step*.  gloo is a host library, so the gather runs
+  through ``engine.host_call`` between two segments, its result in a
+  buffer the next segment reads.
+
+Outside a recording it is a plain call.  ``stats`` is bumped in Python,
+once per call made; the engine's recorder keeps each segment's captured
+calls and bytes and adds them at every replay.
 """
 
 from __future__ import annotations
@@ -35,7 +52,15 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from rails_tpu_torch.core.engine import host_call
+
 __all__ = ["RowComm", "CommStats", "psum", "row_norm"]
+
+# one tensor's gather into a (world * n,) buffer: torch 2.13 renames
+# ``all_gather_into_tensor`` ``all_gather_single`` and warns at every call
+# of the old name, which torch 2.11 alone has
+_gather_into = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
 
 
 def psum(comm, t: torch.Tensor) -> torch.Tensor:
@@ -55,9 +80,9 @@ def row_norm(comm, x: torch.Tensor, dim=None) -> torch.Tensor:
 
 @dataclasses.dataclass
 class CommStats:
-    """What crossed processes: collective calls (a batch of point-to-point
-    sends counts once), the bytes this rank sent, and how many of them
-    were staged through host memory (gloo with CUDA tensors)."""
+    """What crossed processes: collective calls, the bytes this rank
+    sent, and how many of them were staged through host memory (gloo
+    with CUDA tensors)."""
 
     calls: int = 0
     bytes: int = 0
@@ -65,6 +90,14 @@ class CommStats:
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    def counts(self) -> Tuple[int, int, int]:
+        return self.calls, self.bytes, self.staged_bytes
+
+    def add(self, delta: Sequence[int]) -> None:
+        self.calls += delta[0]
+        self.bytes += delta[1]
+        self.staged_bytes += delta[2]
 
 
 class RowComm:
@@ -89,6 +122,13 @@ class RowComm:
     def staged(self) -> bool:
         """True when a CUDA tensor goes through host memory (gloo)."""
         return self.backend == "gloo" and self.device.type == "cuda"
+
+    @property
+    def route(self) -> str:
+        """How a collective of a recorded iteration runs: ``"captured"``
+        in the graph segment (NCCL) or as a ``"host step"`` between two
+        segments (gloo)."""
+        return "captured" if self.backend == "nccl" else "host step"
 
     # -- staging -------------------------------------------------------
     def _out(self, t: torch.Tensor) -> torch.Tensor:
@@ -117,13 +157,19 @@ class RowComm:
 
     # -- gathers -------------------------------------------------------
     def _allgather_flat(self, flat: torch.Tensor) -> torch.Tensor:
-        """(world, n) from every rank's (n,) in rank order: one call."""
+        """(world, n) from every rank's (n,) in rank order: one call, a
+        host step of a recording under gloo."""
+        if self.backend == "gloo":
+            return host_call(self._gather, flat)
+        return self._gather(flat)
+
+    def _gather(self, flat: torch.Tensor) -> torch.Tensor:
         send = self._out(flat)
-        out = self._empty((self.world, flat.numel()), flat.dtype)
-        dist.all_gather(list(out.unbind(0)), send, group=self.group)
+        out = self._empty((self.world * flat.numel(),), flat.dtype)
+        _gather_into(out, send, group=self.group)
         self.stats.calls += 1
         self.stats.bytes += flat.numel() * flat.element_size()
-        return self._back(out)
+        return self._back(out).reshape(self.world, flat.numel())
 
     def allgather_many(self, tensors: Sequence[torch.Tensor]
                        ) -> List[torch.Tensor]:
@@ -196,34 +242,21 @@ class RowComm:
         to rank r-1 (its upper halo) and its ``last`` rows to rank r+1
         (its lower halo).  Returns (lo, hi): rank r-1's ``last`` and rank
         r+1's ``first``, None at the mesh's ends or where every rank
-        passes None (an empty halo).  Every rank passes the same shapes."""
-        ops, recv = [], {}
-        prev, nxt = self.rank - 1, self.rank + 1
-        peers = (("lo", last, prev, nxt), ("hi", first, nxt, prev))
-        for key, payload, src, dst in peers:
-            if payload is None:
-                continue
-            if 0 <= dst < self.world:
-                ops.append(dist.P2POp(dist.isend, self._out(payload),
-                                      self._global(dst), self.group))
-                self.stats.bytes += payload.numel() * payload.element_size()
-            if 0 <= src < self.world:
-                buf = self._empty(tuple(payload.shape), payload.dtype)
-                recv[key] = buf
-                ops.append(dist.P2POp(dist.irecv, buf, self._global(src),
-                                      self.group))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-            self.stats.calls += 1
-        return (self._back(recv["lo"]) if "lo" in recv else None,
-                self._back(recv["hi"]) if "hi" in recv else None)
-
-    def _global(self, rank: int) -> int:
-        """A rank of the group as the point-to-point calls name it."""
-        if self.group is None:
-            return rank
-        return dist.get_global_rank(self.group, rank)
+        passes None (an empty halo).  Every rank passes the same shapes.
+        One all-gather of every rank's ``first`` and ``last``, each rank
+        taking its neighbours' rows (exact copies, as point-to-point
+        sends would give)."""
+        parts = [p for p in (first, last) if p is not None]
+        if not parts:
+            return None, None
+        got = self.allgather_many(parts)
+        firsts = got[0] if first is not None else None
+        lasts = got[-1] if last is not None else None
+        lo = lasts[self.rank - 1] \
+            if lasts is not None and self.rank > 0 else None
+        hi = firsts[self.rank + 1] \
+            if firsts is not None and self.rank + 1 < self.world else None
+        return lo, hi
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)

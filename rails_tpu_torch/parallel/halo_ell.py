@@ -18,7 +18,8 @@ adjacent slabs (banded sparsity, and general sparsity after RCM).
   tensors the kernel's plain version.
 - On a multi-process mesh a process keeps its own shards' payloads, and
   the halos at its first and last shard come from the neighbouring
-  processes (``halo_spmm.process_halos``), one exchange per apply.
+  processes (``halo_spmm.process_halos``), one exchange per apply,
+  captured (NCCL) or a host step (gloo) in a compiled solve.
 
 The JAX package's windowed payload (window starts, window-local indices,
 ``w_cap``, super-window group tables) and its 128-row slab rule serve the

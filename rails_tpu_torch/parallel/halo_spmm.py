@@ -20,7 +20,9 @@ reads nothing but its slab and its two halos, then launches TPU kernel
 On a multi-process mesh a process holds only its own shards' rows and
 payloads; the halos at its first and last shard come from the
 neighbouring processes (``RowComm.neighbour_halos``, the JAX package's
-``ppermute``), one exchange per apply.
+``ppermute``), one exchange per apply: one all-gather of every rank's
+boundary rows, captured in a compiled solve's graph segments under NCCL
+and a host step of the recording under gloo.
 On CPU tensors the same structure runs the kernel's plain version.  The
 JAX package sends only f32, ``m_loc >= 4096`` and two-sided stencils to
 its TPU kernel; the port has no such gate.

@@ -17,7 +17,8 @@ factorization of A11 serial.
     partial, and the partials are summed: the JAX package's per-device
     scatter and ``psum``; on a multi-process mesh each process sums its
     shards' partials and the processes' sums are reduced
-    (``RowComm.allreduce``), one skinny (n1, s) block per apply.
+    (``RowComm.allreduce``), one skinny (n1, s) block per apply, which a
+    compiled solve captures (NCCL) or runs as a host step (gloo).
 - **A11^{-1}** is the dense LU of the ``SchurReduction``, applied with
   ``torch.linalg.lu_solve`` on the mesh's device: the JAX package
   replicates it on every device, and every process holds it.

@@ -236,16 +236,15 @@ def w_solve(comm, mesh, d, tag):
     same = _ranks_agree(comm, t.numpy(), np.array(
         [info.iter, info.status, info.mvps, v.shape[1]]),
         np.array([info.res]), info.resvec)
-    try:
-        solver.solve(compiled=True)
-        refusal = ""
-    except NotImplementedError as e:
-        refusal = str(e)
+    calls = comm.stats.calls
+    # the same solve through the recorded iteration, fed the same draws
+    solver.draws = ReplayDraws(os.path.join(d, "draws.npz"))
+    _, _, cinfo = solver.solve(compiled=True)
     np.savez(os.path.join(d, f"solve.{tag}.r{comm.rank}.npz"),
              v=vv.numpy(), t=t.numpy(), iters=info.iter,
              status=info.status, rank=v.shape[1], local_rows=v.shape[0],
-             same=same, operator=type(solver.A).__name__,
-             calls=comm.stats.calls, refusal=refusal)
+             same=same, operator=type(solver.A).__name__, calls=calls,
+             compiled_iters=cinfo.iter, compiled_status=cinfo.status)
 
 
 def w_schur(comm, mesh, d, tag):
@@ -469,8 +468,9 @@ def test_collectives_and_halos_match_jax(runs, tag):
 def test_solve_matches_jax_mesh_run(runs, jax_solve, tag):
     """The n = 1024 Laplacian in DIA, f64, tol 1e-6, fed the JAX draws:
     the JAX mesh run's iterations, status and rank; X on three probes to
-    1e-8; T and info the same bits on every rank; compiled=True refused
-    naming ROADMAP."""
+    1e-8; T and info the same bits on every rank; compiled=True on the
+    same ranks converged, its count within the across-process bound
+    (15%) of the eager run's."""
     vj, tj, ij, _, _ = jax_solve
     nproc, local = LAYOUTS[tag]
     res = _load(runs[tag], "solve", tag, nproc)
@@ -487,7 +487,9 @@ def test_solve_matches_jax_mesh_run(runs, jax_solve, tag):
         v, t = z["v"], z["t"]
         xt = v @ (t @ (v.T @ probes))
         assert np.linalg.norm(xt - xj) <= 1e-8 * np.linalg.norm(xj)
-        assert "ROADMAP" in str(z["refusal"])
+        assert int(z["compiled_status"]) == int(z["status"])
+        assert abs(int(z["compiled_iters"]) - int(z["iters"])) \
+            <= 0.15 * int(z["iters"])
         # the row reductions went through the communicator
         assert int(z["calls"]) > 10 * ij.iter
 

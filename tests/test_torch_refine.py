@@ -143,7 +143,7 @@ def test_f32_reaches_1e8_in_both(rng):
     assert len(it.stages) >= 2
 
 
-def test_compiled_still_raises(rng):
+def test_compiled_stages_match_eager(rng):
     """solve_refined(compiled=True) runs every stage through the
     recorded iteration and reaches the case's 1e-8 target (true
     residual at most 1.1e-8, the JAX bench's acc_target_met), with the

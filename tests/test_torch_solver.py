@@ -257,7 +257,7 @@ class TestRegressions:
 
 
 class TestNotPortedYet:
-    def test_compiled_raises(self, rng):
+    def test_compiled_matches_eager(self, rng):
         """compiled=True is ported (core/engine.py): on the CPU it runs
         the recorded iteration eagerly and converges to the eager path's
         iteration count and solution."""
