@@ -1,0 +1,6 @@
+"""``solver.iters_per_solve``, in the cells whose timing metrics are the CLI's own
+(``solve_s.cli``, ``iter_ms.cli``)."""
+
+from bench_torch import harness
+
+read = harness.reader("solver.iters_per_solve").read
