@@ -44,6 +44,17 @@ new Jacobian without capturing again.  ``engine_key`` lists what a
 recording closes over; ``structure`` is the part of it an operator
 gives.
 
+Spans (``timer.span``, ranges in a ``torch.profiler`` trace, nothing
+while no profiler collects): ``Engine/replay/<phases>`` around each
+graph segment's replay, named at capture by the solver's phases
+(``Recorder.phase``) whose work the segment holds, joined by ``+``
+(``Engine/replay/project_solve+lanczos``);
+``Engine/host/<phase>.<fn>`` around each host step
+(``Engine/host/project_solve.eigh``); ``Engine/switch`` around each
+switch read and ``Engine/read`` around each chunk read.  The names are
+fixed when the iteration is recorded, whether or not a profiler runs
+then.  The counters of ``EngineStats`` count at the same boundaries.
+
 Launch counts: a kernel wrapper counts once when its launch is captured.
 The recorder takes that count back, keeps each segment's launches, and
 adds them to the wrapper's counter at every replay of the segment.
@@ -62,6 +73,7 @@ whose ranks took different branches would hang in its next collective.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -71,6 +83,8 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from rails_tpu_torch.timer import span
 
 __all__ = ["DeviceState", "Engine", "structure", "host_call", "CODE_DONE",
            "CODE_RESTART", "CODE_EXPAND"]
@@ -125,7 +139,7 @@ def _set_comm_counts(comm, counts) -> None:
 _ACTIVE: Optional["Recorder"] = None
 
 
-def host_call(fn, *args):
+def host_call(fn, *args, name: Optional[str] = None):
     """``fn(*args)`` as a host step of the iteration being recorded, for
     code the solver calls but does not own: an operator's apply that
     leaves the device (a host LU solve, a loop that reads a device
@@ -133,11 +147,12 @@ def host_call(fn, *args):
     the CPU, in an eager solve, in the warm-up iteration, in a replay
     (the recorded host step calls ``fn`` itself) and inside another host
     step.  ``fn``'s tensor arguments must be tensors the iteration
-    computed; its outputs land in buffers the next segment reads."""
+    computed; its outputs land in buffers the next segment reads.
+    ``name``: the step's name in its span (default ``fn.__name__``)."""
     rec = _ACTIVE
     if rec is None or not rec.capturing:
         return fn(*args)
-    return rec.host(fn, *args)
+    return rec.host(fn, *args, name=name)
 
 
 # ----------------------------------------------------------------------
@@ -331,18 +346,20 @@ class DeviceState:
 # the recording: graph segments, host steps, switches
 # ----------------------------------------------------------------------
 class _Graph:
-    __slots__ = ("graph", "launches", "comm")
+    __slots__ = ("graph", "launches", "comm", "name")
 
-    def __init__(self, graph, launches, comm):
+    def __init__(self, graph, launches, comm, name):
         self.graph, self.launches, self.comm = graph, launches, comm
+        self.name = name        # the span of its replays
 
 
 class _Host:
-    __slots__ = ("fn", "args", "outs", "single", "calls")
+    __slots__ = ("fn", "args", "outs", "single", "calls", "name")
 
-    def __init__(self, fn, args, outs, single, calls):
+    def __init__(self, fn, args, outs, single, calls, name):
         self.fn, self.args, self.outs, self.single = fn, args, outs, single
         self.calls = calls      # collective calls of one run of fn
+        self.name = name
 
 
 class _Switch:
@@ -388,7 +405,8 @@ class EngineStats:
 class Recorder:
     """The iteration's hooks: ``host(fn, *args)`` for a call that cannot
     be captured, ``switch(code, branches)`` for the branch on a device
-    code.  Eager: plain calls.  Capturing: each hook closes the current
+    code, ``phase(name)`` around each of the solver's phases.  Eager:
+    plain calls.  Capturing: each of the first two closes the current
     graph segment, and the recording grows a program tree."""
 
     def __init__(self, engine: "Engine"):
@@ -396,23 +414,43 @@ class Recorder:
         self.comm = getattr(engine, "comm", None)
         self.capturing = False
         self.code = CODE_EXPAND
+        self._phase = None      # the phase the iteration is in
+        self._phases = []       # the phases of the open graph segment
 
     # ---- the hooks --------------------------------------------------
-    def host(self, fn, *args):
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        """The iteration's phase ``name`` (``gram_update``,
+        ``project_solve``, ...): a ``Solver/<name>`` span; while
+        capturing, it names the graph segments that hold its work and the
+        host steps called inside it."""
+        prev, self._phase = self._phase, name
+        if self.capturing:
+            self._phases.append(name)
+        try:
+            with span("Solver", name):
+                yield
+        finally:
+            self._phase = prev
+
+    def host(self, fn, *args, name: Optional[str] = None):
         global _ACTIVE
         if not self.capturing:
             return fn(*args)
         self._end()
+        step = (f"Engine/host/{self._phase or 'iterate'}."
+                f"{name or getattr(fn, '__name__', 'call')}")
         _ACTIVE = None          # host_call inside fn: a plain call
         before, cbefore = _counts(), _comm_counts(self.comm)
         try:
-            outs = fn(*args)
+            with span(step):
+                outs = fn(*args)
         finally:
             _ACTIVE = self
         single = isinstance(outs, torch.Tensor)
         static = tuple(o.clone() for o in ((outs,) if single else outs))
         calls = _comm_counts(self.comm)[0] - cbefore[0]
-        self._prog[-1].append(_Host(fn, args, static, single, calls))
+        self._prog[-1].append(_Host(fn, args, static, single, calls, step))
         if self._exec[-1]:
             self.engine.stats.host_steps += 1
             self.engine.stats.launches += sum(
@@ -431,7 +469,8 @@ class Recorder:
         self._end()
         c = -1
         if self._exec[-1]:
-            c = self.code = int(code)
+            with span("Engine", "switch"):
+                c = self.code = int(code)
             self.engine.stats.switch_reads += 1
         progs = []
         for i, br in enumerate(branches):
@@ -495,6 +534,7 @@ class Recorder:
         g.capture_begin(pool=eng.pool, capture_error_mode=eng.capture_mode)
         eng.segment_ticks.add_(1)       # no segment is empty
         self._graph = g
+        self._phases = [self._phase] if self._phase else []
 
     def _end(self) -> None:
         g = self._graph
@@ -504,7 +544,8 @@ class Recorder:
         cdelta = tuple(a - b for a, b in zip(cafter, self._csnap))
         _set_counts(self._snap)   # captured, not launched
         _set_comm_counts(self.comm, self._csnap)
-        node = _Graph(g, delta, cdelta)
+        phases = "+".join(dict.fromkeys(self._phases)) or "iterate"
+        node = _Graph(g, delta, cdelta, f"Engine/replay/{phases}")
         self._prog[-1].append(node)
         if self._exec[-1]:
             self.engine.replay_graph(node)
@@ -517,15 +558,17 @@ class Recorder:
                 eng.replay_graph(node)
             elif isinstance(node, _Host):
                 before = _counts()
-                outs = node.fn(*node.args)
-                for s, o in zip(node.outs,
-                                (outs,) if node.single else outs):
-                    s.copy_(o)
+                with span(node.name):
+                    outs = node.fn(*node.args)
+                    for s, o in zip(node.outs,
+                                    (outs,) if node.single else outs):
+                        s.copy_(o)
                 eng.stats.host_steps += 1
                 eng.stats.launches += sum(
                     a - b for a, b in zip(_counts(), before))
             else:
-                self.code = int(node.code)
+                with span("Engine", "switch"):
+                    self.code = int(node.code)
                 eng.stats.switch_reads += 1
                 branch = node.branches[self.code]
                 if branch is not None:
@@ -618,7 +661,8 @@ class Engine:
         return x if self.own is None else x[self.own[0]:self.own[1]]
 
     def replay_graph(self, node: _Graph) -> None:
-        node.graph.replay()
+        with span(node.name):
+            node.graph.replay()
         _add_counts(node.launches)
         self.stats.segments += 1
         self.stats.launches += sum(node.launches)
@@ -663,11 +707,12 @@ class Engine:
         """(iter, res, done) of the state; across processes checked to
         be the same bits on every rank, else every rank raises."""
         ds = self.ds
-        vals = torch.stack(
-            [ds.iter.double(), ds.res.double(), ds.done.double()])
-        if self.comm is not None:
-            self._check_in_step(vals)
-        it, res, done = vals.tolist()
+        with span("Engine", "read"):
+            vals = torch.stack(
+                [ds.iter.double(), ds.res.double(), ds.done.double()])
+            if self.comm is not None:
+                self._check_in_step(vals)
+            it, res, done = vals.tolist()
         return int(it), res, bool(done)
 
     def _check_in_step(self, vals: torch.Tensor) -> None:

@@ -77,7 +77,7 @@ from rails_tpu_torch.linalg import dense_lyap
 from rails_tpu_torch.operators import (
     DenseOperator, LinearOperator, as_operator, operator_norm2)
 from rails_tpu_torch.parallel.comm import psum, row_norm
-from rails_tpu_torch.timer import timer
+from rails_tpu_torch.timer import span, timer
 from rails_tpu_torch.utils.compensated import (
     dot2, dot2_pair, gram2, gram2_pair, rank_pair_sum)
 from rails_tpu_torch.utils.device import as_tensor, resolve_device
@@ -381,10 +381,11 @@ class LyapunovSolver:
         collectives captured in the graph segments under NCCL and run as
         host steps under gloo; it returns this rank's rows of V and the
         replicated T and info, as the eager path does."""
-        if compiled:
-            v, t, info = self._solve_compiled(progress)
-        else:
-            v, t, info = self._solve_eager(progress)
+        with span("Solver", "solve"):
+            if compiled:
+                v, t, info = self._solve_compiled(progress)
+            else:
+                v, t, info = self._solve_eager(progress)
         opt = self.options
         if opt.verbosity > 0:
             outcome = "converged" if info.status == 0 else "did not converge"
@@ -640,7 +641,10 @@ class LyapunovSolver:
         - Every state update is a copy into a buffer of fixed address.
         - The dense factorizations go through
           ``dense_lyap.CaptureCalls``: the ``_ex`` forms, and eigh (and
-          on the card the schur route) as host steps."""
+          on the card the schur route) as host steps.
+        - The phases run under ``rec.phase``: the eager path's
+          ``Solver/<phase>`` spans, and the names of the recorded graph
+          segments and host steps."""
         from rails_tpu_torch.core.engine import (
             CODE_DONE, CODE_EXPAND, CODE_RESTART)
 
@@ -683,34 +687,40 @@ class LyapunovSolver:
             ds.mvps.add_(torch.where(g, ds.n_new, 0))
 
         def restart():
-            x, keep = self._restart_rotation(ds, ctx, calls)
-            rot, congruence = self._rotators(x)
-            for buf in (ds.V, ds.AV, ds.BV) + (
-                    (ds.MV,) if ctx.has_m else ()):
-                buf.copy_(rot(buf))
-            ds.VAV.copy_(congruence(ds.VAV))
-            vbv = congruence(ds.VBV)
-            ds.VBV.copy_(0.5 * (vbv + vbv.T))
-            if ctx.has_m and not ctx.mortho:
-                ds.VMV.copy_(congruence(ds.VMV))
-            ds.k.copy_(keep.sum())
-            for x0 in (ds.w_start, ds.n_new, ds.iter_since_restart):
-                x0.zero_()
+            with rec.phase("restart"):
+                x, keep = self._restart_rotation(ds, ctx, calls)
+                rot, congruence = self._rotators(x)
+                for buf in (ds.V, ds.AV, ds.BV) + (
+                        (ds.MV,) if ctx.has_m else ()):
+                    buf.copy_(rot(buf))
+                ds.VAV.copy_(congruence(ds.VAV))
+                vbv = congruence(ds.VBV)
+                ds.VBV.copy_(0.5 * (vbv + vbv.T))
+                if ctx.has_m and not ctx.mortho:
+                    ds.VMV.copy_(congruence(ds.VMV))
+                ds.k.copy_(keep.sum())
+                for x0 in (ds.w_start, ds.n_new, ds.iter_since_restart):
+                    x0.zero_()
 
         def expand(cands):
-            wacc, okv = self._compact(
-                ds, ctx, *self._expansion_block(ds, ctx, cands))
-            ds.V.index_copy_(1, block_ids(ds.k), wacc)
-            n_acc = okv.sum()
-            ds.w_start.copy_(ds.k)
-            ds.n_new.copy_(n_acc)
-            ds.k.add_(n_acc)
+            with rec.phase("expand"):
+                wacc, okv = self._compact(
+                    ds, ctx, *self._expansion_block(ds, ctx, cands))
+                ds.V.index_copy_(1, block_ids(ds.k), wacc)
+                n_acc = okv.sum()
+                ds.w_start.copy_(ds.k)
+                ds.n_new.copy_(n_acc)
+                ds.k.add_(n_acc)
 
         def iterate():
-            gram_update()
-            ds.T.copy_(self._projected_t(ds, ctx, calls, rec.host))
-            res_abs, cands, q_warm = self._lanczos(ds, ctx, draw(), calls)
-            ds.q_warm.copy_(q_warm)
+            with rec.phase("gram_update"):
+                gram_update()
+            with rec.phase("project_solve"):
+                ds.T.copy_(self._projected_t(ds, ctx, calls, rec.host))
+            with rec.phase("lanczos"):
+                res_abs, cands, q_warm = self._lanczos(ds, ctx, draw(),
+                                                       calls)
+                ds.q_warm.copy_(q_warm)
             rel = res_abs / ctx.r0sq
             rel64 = rel.to(torch.float64)
             it_ids = ds.iter.reshape(1)
@@ -1122,7 +1132,7 @@ class LyapunovSolver:
         ct = 0.5 * (ct + ct.T)
         if host is not None and ctx.lyap_method == "schur":
             y = host(functools.partial(dense_lyap.lyap, method="schur"),
-                     at, ct)
+                     at, ct, name="host_schur")
         elif calls is dense_lyap.EAGER_CALLS:
             y = dense_lyap.lyap(at, ct, method=ctx.lyap_method)
         else:
@@ -1381,7 +1391,7 @@ class LyapunovSolver:
         w = cands
         if opt.inv_a is not None and opt.uses_inverse_on_expand:
             # a callable of unknown kind: a host step of a recording
-            wi = host_call(opt.inv_a, w)
+            wi = host_call(opt.inv_a, w, name="inv_a")
             w = torch.cat([w, wi], dim=1) if opt.expansion_doubles else wi
         if opt.fast_orthogonalization:
             return self._orthonormal_block_fast(st, ctx, w)

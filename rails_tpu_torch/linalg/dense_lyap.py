@@ -24,6 +24,12 @@ generalized equation to standard form (eigenvalue-clipped congruence for
 SPD or symmetric E, E^{-1} otherwise) after a symmetric diagonal
 balancing, followed by residual-tracked refinement on the generalized
 residual.
+
+Span (``timer.span``): ``DenseLyap/host_schur`` around the host's LAPACK
+work: each zgees (the "lapack" and "host" routes' factor, its copy from
+the device included) and each solve of the "host" route (trsyl and its
+round trip).  The "lapack" route's back-substitution and ``lyap``'s
+refinement arithmetic lie outside it.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import scipy.linalg
 import torch
 
 from rails_tpu_torch.linalg.schur_qr import complex_schur
+from rails_tpu_torch.timer import span
 from rails_tpu_torch.utils.dtypes import complex_dtype_for, highest_precision
 from rails_tpu_torch.utils.host_blas import single_thread_blas
 
@@ -76,7 +83,7 @@ class CaptureCalls(DenseCalls):
         self.host = host
 
     def eigh(self, a):
-        return self.host(torch.linalg.eigh, a)
+        return self.host(torch.linalg.eigh, a, name="eigh")
 
     def inv(self, a):
         return torch.linalg.inv_ex(a)[0]
@@ -244,7 +251,11 @@ def _schur_factor(a, max_sweeps: Optional[int] = None,
     route = schur_route(a, route)
     if route == "host":
         return _host_schur_factor(a, cdtype)
-    t, u = schur_factors(a.to(cdtype), route, max_sweeps)
+    if route == "qr":
+        t, u = complex_schur(a.to(cdtype), max_sweeps=max_sweeps)
+    else:
+        with span("DenseLyap", "host_schur"):
+            t, u = schur_factors(a.to(cdtype), route)
     eye = torch.eye(k, dtype=cdtype, device=a.device)
     col_ids = torch.arange(k, device=a.device)
     zero = torch.zeros((), dtype=cdtype, device=a.device)
@@ -267,17 +278,20 @@ def _schur_factor(a, max_sweeps: Optional[int] = None,
 def _host_schur_factor(a, cdtype):
     """The "host" route: T Y + Y T^H = G by LAPACK's trsyl, X = Re(U Y
     U^H), all on the host; each solve moves C there and X back."""
-    t, u = _lapack_schur(a.to(cdtype))
+    with span("DenseLyap", "host_schur"):
+        t, u = _lapack_schur(a.to(cdtype))
     trsyl = scipy.linalg.get_lapack_funcs("trsyl", (t,))
     uh = u.conj().T
     rdtype = t.real.dtype
 
     def solve(c):
-        c = c.detach().cpu().numpy().astype(t.dtype)
-        with single_thread_blas():
-            y, scale, _ = trsyl(t, t, -(uh @ c @ u), trana="N", tranb="C")
-            x = (u @ (y / scale) @ uh).real.astype(rdtype)
-        return _sym(torch.from_numpy(x).to(a.device))
+        with span("DenseLyap", "host_schur"):
+            c = c.detach().cpu().numpy().astype(t.dtype)
+            with single_thread_blas():
+                y, scale, _ = trsyl(t, t, -(uh @ c @ u), trana="N",
+                                    tranb="C")
+                x = (u @ (y / scale) @ uh).real.astype(rdtype)
+            return _sym(torch.from_numpy(x).to(a.device))
 
     return solve
 

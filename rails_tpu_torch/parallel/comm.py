@@ -160,7 +160,7 @@ class RowComm:
         """(world, n) from every rank's (n,) in rank order: one call, a
         host step of a recording under gloo."""
         if self.backend == "gloo":
-            return host_call(self._gather, flat)
+            return host_call(self._gather, flat, name="allgather")
         return self._gather(flat)
 
     def _gather(self, flat: torch.Tensor) -> torch.Tensor:

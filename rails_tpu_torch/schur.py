@@ -25,6 +25,8 @@ and the solver runs on (S, MS, BS).  Here:
   factors) memory where the dense LU holds n1^2; ``'iterative'`` runs a
   Jacobi-preconditioned BiCGStab whose matvec is the A11 sparse operator
   (format by ``'auto'``); or any callable (MATLAB's opts.Ainv contract).
+  Inside each apply of S it runs in a ``Schur/a11_solve`` span
+  (``timer.span``).
 
 Post-solution analysis (the full-space solution operator for eigenvalue
 extraction, and its trace, C++ SchurOperator::Apply(hasSolution)/Trace,
@@ -44,6 +46,7 @@ from rails_tpu_torch.core.engine import host_call
 from rails_tpu_torch.operators import (
     CallableOperator, DiagonalOperator, LinearOperator)
 from rails_tpu_torch.sparse.formats import SparseOperator, sparse_from_scipy
+from rails_tpu_torch.timer import span
 from rails_tpu_torch.utils.device import as_tensor, resolve_device
 
 __all__ = ["SchurReduction", "schur_reduce"]
@@ -56,7 +59,7 @@ def _host_solver(lu, trans: bool, rows=None, n=None):
     a zero right-hand side and the solution read back from them
     (``sinv``'s reorder trick)."""
     def solve(x):
-        return host_call(on_host, x)
+        return host_call(on_host, x, name="a11_solve")
 
     def on_host(x):
         xh = x.detach().cpu().double().numpy()
@@ -262,7 +265,7 @@ class SchurReduction:
                 def run(x):
                     return _bicgstab(matvec, x, tol=tol, maxiter=maxiter,
                                      precond=precond)
-                return lambda x: host_call(run, x)
+                return lambda x: host_call(run, x, name="a11_solve")
 
             self.a11_solve = solver(a11_op.matmat)
             self.a11_solve_t = solver(a11_op.rmatmat)
@@ -317,12 +320,16 @@ class SchurReduction:
             return op
 
         def apply(x):
-            return self.A22.matmat(x) - self.A21.matmat(
-                self.a11_solve(self.A12.matmat(x)))
+            z, y = self.A22.matmat(x), self.A12.matmat(x)
+            with span("Schur", "a11_solve"):
+                y = self.a11_solve(y)
+            return z - self.A21.matmat(y)
 
         def apply_t(x):
-            return self.A22.rmatmat(x) - self.A12.rmatmat(
-                self.a11_solve_t(self.A21.rmatmat(x)))
+            z, y = self.A22.rmatmat(x), self.A21.rmatmat(x)
+            with span("Schur", "a11_solve"):
+                y = self.a11_solve_t(y)
+            return z - self.A12.rmatmat(y)
 
         op = CallableOperator(apply, (self.n2, self.n2), rfn=apply_t,
                               is_hurwitz=self.hurwitz)

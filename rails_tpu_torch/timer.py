@@ -12,6 +12,14 @@ scope: a scope's time is then the device's time for it plus the host's.
 The synchronisation is itself a cost (it drains the queue, so the host
 can no longer run ahead), which is why profiling is off by default and
 the scope then costs one flag test.
+
+Spans: ``span(*name)`` marks a range on the profiler's clock.  While a
+``torch.profiler`` session collects, it opens a
+``torch.profiler.record_function("/".join(name))`` range, which lands in
+the trace beside the device activity, on the same clock; otherwise it
+costs one test of the flag the profiler sets, and returns a context that
+does nothing.  A span never synchronises, so it may sit inside a CUDA
+graph capture.  Every ``timer`` scope is also a span of the same name.
 """
 
 from __future__ import annotations
@@ -23,12 +31,14 @@ from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["timer", "enable_profiling", "disable_profiling",
+__all__ = ["timer", "span", "enable_profiling", "disable_profiling",
            "save_profiles", "reset_profiles", "get_profiles"]
 
 _lock = threading.Lock()
 _enabled = False
+_NO_SPAN = contextlib.nullcontext()
 
 
 @dataclass
@@ -69,26 +79,37 @@ def _sync():
         torch.cuda.synchronize()
 
 
+def span(*name: str):
+    """A profiler range named ``"/".join(name)`` while ``torch.profiler``
+    collects, else a context that does nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function("/".join(name))
+
+
 @contextlib.contextmanager
 def timer(*name: str):
     """RAII-scope accumulating timer (RAILS_FUNCTION_TIMER /
-    RAILS_START_TIMER+RAILS_END_TIMER equivalent)."""
+    RAILS_START_TIMER+RAILS_END_TIMER equivalent); also a span of the
+    same name, which covers what the timer times."""
     if not _enabled:
-        yield
+        with span(*name):
+            yield
         return
     _sync()
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        _sync()
-        dt = time.perf_counter() - t0
-        with _lock:
-            prof = _profiles.get(name)
-            if prof is None:
-                prof = _profiles[name] = Profile(name)
-            prof.calls += 1
-            prof.total += dt
+    with span(*name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            _sync()
+            dt = time.perf_counter() - t0
+            with _lock:
+                prof = _profiles.get(name)
+                if prof is None:
+                    prof = _profiles[name] = Profile(name)
+                prof.calls += 1
+                prof.total += dt
 
 
 def save_profiles(prefix: str = "", stream=None) -> str:

@@ -248,7 +248,7 @@ class _StubRecorder:
     def __init__(self):
         self.steps = []
 
-    def host(self, fn, *args):
+    def host(self, fn, *args, name=None):
         self.steps.append(fn)
         engine_mod._ACTIVE = None   # as Recorder.host: nested calls plain
         try:

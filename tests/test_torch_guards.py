@@ -28,7 +28,7 @@ def test_import_pulls_in_no_jax():
     load neither JAX nor the JAX package."""
     code = ("import sys, rails_tpu_torch, rails_tpu_torch.interop, "
             "rails_tpu_torch.models.problems, rails_tpu_torch._build, "
-            "rails_tpu_torch.profile_solve, rails_tpu_torch.refine, "
+            "rails_tpu_torch.refine, "
             "rails_tpu_torch.continuation, rails_tpu_torch.sparse.wide_spmm, "
             "rails_tpu_torch.utils.compensated, rails_tpu_torch.cli, "
             "rails_tpu_torch.parallel.sharded, "

@@ -591,7 +591,7 @@ class _StubRecorder:
         self.steps = []
         self.engine_mod = engine_mod
 
-    def host(self, fn, *args):
+    def host(self, fn, *args, name=None):
         self.steps.append(fn)
         self.engine_mod._ACTIVE = None
         try:
