@@ -59,10 +59,10 @@ exits nonzero and never prints the last line):
               zero) written as A.mtx/B.mtx/M.mtx, then
               ``rails_tpu_torch.cli.main([dir, "--x64", "--params", p])``:
               Schur reduction (A12/A21/A22 in ELL, A11 by dense LU), the
-              solve on (S, M22, Bs) with the projected Schur solve on the
-              card's route (``dense_lyap.CARD_SCHUR_ROUTE``; its projected
-              matrices at k = 48, 96, 160 and the largest k are kept for
-              phase 18), V.mtx/T.mtx, the eigenvalues of the
+              solve on (S, M22, Bs), S tagged symmetric (A is, and the A11
+              solve is direct) so that the projected solve takes the eigh
+              route (the CLI's "Projected solver: eigh (S symmetric)",
+              checked), V.mtx/T.mtx, the eigenvalues of the
               full-space solution operator and the trace.  It must
               converge with an f64 true residual of the reduced equation
               (host, A11 by scipy splu) <= 2 tol, write V/T and read them
@@ -133,9 +133,14 @@ exits nonzero and never prints the last line):
               operator to 1e-12 relative; (b) the CLI's --distributed on a
               side-96 DAE: "Distributed operator: DistributedSchurOperator",
               converged with true residual <= 2 tol, V/T read back equal,
-              leading eigenvalue equal to eigsh's to 1e-6.
-18. schur_lapack - the projected Schur solve's routes on cli_schur's
-              projected matrices: the factor by LAPACK's zgees in a k x k
+              leading eigenvalue equal to eigsh's to 1e-6; S is tagged
+              symmetric, so it takes eigh, and (b) again with
+              projected_solver "schur" drives the Schur route on the mesh
+              (``schur_route_run``), held to the same checks.
+18. schur_lapack - the projected Schur solve's routes on the projected
+              matrices of cli_schur run with projected_solver "schur"
+              (phase 7 takes eigh) at k = 48, 96, 160 and the largest k:
+              the factor by LAPACK's zgees in a k x k
               round trip to the host against the port's QR sweeps (and
               their count), the back-substitution on the card against
               LAPACK's trsyl on the host, each route's X within 1e-8 of
@@ -192,9 +197,13 @@ exits nonzero and never prints the last line):
               splu of A11), wall and s per iteration both ways, graph
               segments, host steps and switch reads per iteration, ELL
               launches per iteration, capture seconds, peak memory, and
-              cli_schur's eager dense_lu wall beside it; then the same for
+              cli_schur's eager dense_lu wall beside it; then the same
+              with projected_solver "schur" (S is tagged symmetric, so the
+              first case's projected solve is an eigh host step; this one
+              is the ``host_schur`` host step); then the same for
               inv_a=red.sinv("native_lu") with projection_method 2.2 on
-              the side-96 DAE.
+              the side-96 DAE.  Each case reports its projected solver
+              and its host-step sources.
 26. examples - examples/continuation_sequence_torch.py and
               examples/distributed_schur_torch.py on the card as
               subprocesses: exit 0, warm steps and the resumed step below
@@ -699,12 +708,15 @@ def capture_projected(store):
 
 
 def run_cli_schur(torch, spmm, em, tol, side=CLI_SIDE, extra=(),
-                  label="cli_schur", capture=None):
+                  label="cli_schur", capture=None, solver=None):
     """The reference's main-program path through the port's CLI on the
     side-``side`` Laplacian DAE at float64 (``extra``: more CLI flags);
     counts reset just before ``cli.main``, read just after.  With a dict
     ``capture``, the projected matrices of the schur route are recorded
-    there (``capture_projected``)."""
+    there (``capture_projected``).  ``solver``: more options of the
+    "Lyapunov Solver" sublist.  Raises unless the CLI prints the
+    projected solver asked for there, and otherwise eigh (A is
+    symmetric and the A11 solve dense LU, so S is tagged symmetric)."""
     from rails_tpu_torch.linalg import dense_lyap
     import scipy.sparse as sp
 
@@ -716,7 +728,7 @@ def run_cli_schur(torch, spmm, em, tol, side=CLI_SIDE, extra=(),
     params = {"Lyapunov Solver": {"Tolerance": tol,
                                   "Maximum iterations": 3000,
                                   "Expand size": 8, "Restart size": 160,
-                                  "Reduced size": 80}}
+                                  "Reduced size": 80, **(solver or {})}}
     written = {}
     write = rio.write_matrix_market
 
@@ -785,11 +797,21 @@ def run_cli_schur(torch, spmm, em, tol, side=CLI_SIDE, extra=(),
            "lambda1_cli": lam_cli, "lambda1_eigsh": lam_host,
            "lambda1_rel_diff": abs(lam_cli - lam_host) / abs(lam_host),
            "eig_table": table, "scopes": scopes,
-           "schur_route": dense_lyap.CARD_SCHUR_ROUTE,
            "project_solve_share": scopes.get("Solver/project_solve", {})
            .get("total_s", 0.0) / wall}
     mt = re.search(r"Distributed operator: (\w+)", text)
     out["distributed_operator"] = mt.group(1) if mt else None
+    mt = re.search(r"Projected solver: (\w+) \(S (symmetric|not "
+                   r"symmetric)\)", text)
+    route = (solver or {}).get("projected_solver", "eigh")
+    out.update({"projected_solver": mt and mt.group(1),
+                "s_symmetric": mt and mt.group(2) == "symmetric",
+                "schur_route": dense_lyap.CARD_SCHUR_ROUTE
+                if route == "schur" else None})
+    if out["projected_solver"] != route or not out["s_symmetric"]:
+        raise AssertionError(f"{label}: the CLI did not print the "
+                             f"projected solver {route} with S symmetric: "
+                             f"{out}")
     if rc != 0 or not out["converged"]:
         raise AssertionError(f"{label} did not converge: {out}")
     if res_true > 2 * tol:
@@ -1371,16 +1393,14 @@ def run_earlier_phases(torch, rt, spmm, em, smi, gen):
 
     # ---- 7. the reference's main-program Schur path through the CLI
     t0 = time.perf_counter()
-    captured = {}
-    out_cli = run_cli_schur(torch, spmm, em, 1e-4, capture=captured)
-    out_cli.update({"qr_route_iters": 396,
-                    "phase_wall_s": time.perf_counter() - t0})
+    out_cli = run_cli_schur(torch, spmm, em, 1e-4)
+    out_cli["phase_wall_s"] = time.perf_counter() - t0
     emit(out_cli)
     EAGER["cli_schur"] = out_cli
     return {"dia": (main_launches, slice_err, timings[0]),
             "ell": (out_cli["ell_spmm_launches"], ell_slice_err,
                     ell_timings[0]),
-            "solve_f64": out64, "cli_schur": (out_cli, captured)}
+            "solve_f64": out64}
 
 
 def run_wide_phases(torch, rt, spmm, em, wm, refine_mod, smi, gen, only):
@@ -1859,10 +1879,24 @@ def run_mesh_phases(torch, rt, spmm, em, smi, gen, only, solve_f64):
         torch.cuda.empty_cache()
         out = run_cli_schur(torch, spmm, em, 1e-4, side=MESH_CLI_SIDE,
                             extra=("--distributed",), label="mesh_schur")
-        if out["distributed_operator"] != "DistributedSchurOperator":
-            raise AssertionError(f"mesh_schur: the CLI's distributed "
-                                 f"operator is {out['distributed_operator']}")
-        out.update({"distribute_schur": apply_row, "qr_route_iters": 127,
+        # again with the Schur route asked for, so that it runs on the
+        # mesh too (S is tagged symmetric: the run above, and phases
+        # 28 (b) and 29 (c), take eigh)
+        route = run_cli_schur(torch, spmm, em, 1e-4, side=MESH_CLI_SIDE,
+                              extra=("--distributed",),
+                              label="mesh_schur_route",
+                              solver={"projected_solver": "schur"})
+        for run in (out, route):
+            if run["distributed_operator"] != "DistributedSchurOperator":
+                raise AssertionError(
+                    f"{run['phase']}: the CLI's distributed operator is "
+                    f"{run['distributed_operator']}")
+        out.update({"distribute_schur": apply_row,
+                    "schur_route_run": {k: route[k] for k in (
+                        "projected_solver", "schur_route", "iters",
+                        "wall_s", "s_per_iter", "project_solve_share",
+                        "res_true_f64", "lambda1_rel_diff")},
+                    "qr_route_iters": 127,
                     "qr_route_project_solve_share": 0.955,
                     "phase_wall_s": time.perf_counter() - t0})
         emit(out)
@@ -2215,15 +2249,17 @@ CLI_OPTS = dict(tol=1e-4, expand=8, restart_size=160, reduced_size=80,
                 maxit=3000)   # cli_schur's parameters (run_cli_schur)
 
 
-def run_schur_solve(torch, rt, em, label, side, a11, compiled, sinv=None):
+def run_schur_solve(torch, rt, em, label, side, a11, compiled, sinv=None,
+                    route="auto"):
     """The side-``side`` Laplacian DAE (``laplacian_dae``) reduced by
     ``schur_reduce(a11_solver=a11)`` at float64 and solved through
-    ``rt.solve(red.operator, red.bs, red.ms)`` with cli_schur's
-    parameters, compiled or eager (``sinv``: ``inv_a=red.sinv(sinv)``
-    with projection_method 2.2); counts reset just before the solve,
-    read just after.  Raises unless it converged with the f64 true
-    residual of the reduced equation (S through scipy's splu of A11)
-    <= 2 tol and launched the ELL kernel."""
+    ``rt.LyapunovSolver(red.operator, red.bs, red.ms).solve()`` with
+    cli_schur's parameters, compiled or eager (``sinv``:
+    ``inv_a=red.sinv(sinv)`` with projection_method 2.2; ``route``: the
+    projected_solver option); counts reset just before the solve, read
+    just after.  Raises unless it converged with the f64 true residual
+    of the reduced equation (S through scipy's splu of A11) <= 2 tol and
+    launched the ELL kernel."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
 
@@ -2234,12 +2270,13 @@ def run_schur_solve(torch, rt, em, label, side, a11, compiled, sinv=None):
     reduce_s = time.perf_counter() - t0
     kw = {} if sinv is None else {"inv_a": red.sinv(sinv),
                                   "projection_method": 2.2}
+    solver = rt.LyapunovSolver(red.operator, red.bs, red.ms,
+                               projected_solver=route, **CLI_OPTS, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     em.ell_spmm.launches = 0
     t0 = time.perf_counter()
-    v, t, info = rt.solve(red.operator, red.bs, red.ms, compiled=compiled,
-                          **CLI_OPTS, **kw)
+    v, t, info = solver.solve(compiled=compiled)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = em.ell_spmm.launches
@@ -2251,6 +2288,8 @@ def run_schur_solve(torch, rt, em, label, side, a11, compiled, sinv=None):
                               t.detach().cpu().double().numpy())
     out = {"case": label, "n": a.shape[0], "n1": red.n1, "n2": red.n2,
            "a11_solver": a11, "inv_a": sinv, "compiled": compiled,
+           "s_symmetric": red.operator.is_symmetric,
+           "projected_solver": solver._resolve_lyap_method()[0],
            "iters": info.iter, "status": info.status,
            "converged": info.status == 0, "res": info.res,
            "rank": int(v.shape[1]), "res_true_f64": res_true,
@@ -2340,18 +2379,26 @@ def run_slice_phases(torch, rt, em, wm, only, eager):
     if want("compiled_schur"):
         t0 = time.perf_counter()
         cases = []
-        for label, side, sinv in (("native_lu", CLI_SIDE, None),
-                                  ("inv_a_native_lu", MESH_CLI_SIDE,
-                                   "native_lu")):
+        for label, side, sinv, route in (
+                ("native_lu", CLI_SIDE, None, "auto"),
+                ("native_lu_schur_route", CLI_SIDE, None, "schur"),
+                ("inv_a_native_lu", MESH_CLI_SIDE, "native_lu", "auto")):
             with full_capacity():
                 full = run_schur_solve(torch, rt, em, f"{label}_eager_full",
-                                       side, "native_lu", False, sinv)
+                                       side, "native_lu", False, sinv,
+                                       route)
             comp = run_schur_solve(torch, rt, em, f"{label}_compiled", side,
-                                   "native_lu", True, sinv)
+                                   "native_lu", True, sinv, route)
+            want_route = "eigh" if route == "auto" else route
+            if not comp["s_symmetric"] or \
+                    comp["projected_solver"] != want_route:
+                raise AssertionError(f"compiled_schur {label}: S untagged "
+                                     f"or not the {want_route} route: "
+                                     f"{comp}")
             case = compare_eager(label, full, comp, 2 * CLI_OPTS["tol"])
             case.update({
                 "side": side, "n": comp["n"], "n1": comp["n1"],
-                "n2": comp["n2"],
+                "n2": comp["n2"], "projected_solver": comp["projected_solver"],
                 "iters_equal": comp["iters"] == full["iters"],
                 "switch_reads_per_iter": comp["switch_reads_per_iter"],
                 "host_step_sources": comp["host_step_sources"],
@@ -3386,20 +3433,20 @@ def schur_route_case(torch, label, k, a, c):
     return row
 
 
-def run_schur_lapack(torch, spmm, em, cli):
-    """Phase 18: the projected Schur solve's routes timed on cli_schur's
-    projected matrices, and cli_schur itself on the card's route (run
-    here when phase 7 was skipped)."""
+def run_schur_lapack(torch, spmm, em):
+    """Phase 18: the projected Schur solve's routes timed on the
+    projected matrices of cli_schur with the Schur route asked for (S is
+    tagged symmetric, so phase 7's run takes eigh), and that run itself
+    on the card's route."""
     from rails_tpu_torch.linalg import dense_lyap
 
     t0 = time.perf_counter()
-    if cli is None:
-        captured = {}
-        out_cli = run_cli_schur(torch, spmm, em, 1e-4, capture=captured)
-        out_cli["qr_route_iters"] = 396
-        emit(out_cli)
-    else:
-        out_cli, captured = cli
+    captured = {}
+    out_cli = run_cli_schur(torch, spmm, em, 1e-4, label="cli_schur_route",
+                            capture=captured,
+                            solver={"projected_solver": "schur"})
+    out_cli["qr_route_iters"] = 396
+    emit(out_cli)
     rows = [schur_route_case(torch, f"k >= {key}" if key != "max"
                              else "largest k", *captured[key])
             for key in (*SCHUR_KS, "max") if key in captured]
@@ -3715,17 +3762,16 @@ def run_hub(torch, rt, em, gen):
             "wall_s": time.perf_counter() - t0}, launches
 
 
-def run_host_phases(torch, rt, spmm, em, gen, only, cli):
+def run_host_phases(torch, rt, spmm, em, gen, only):
     """Phases 18-20 (this slice's: the LAPACK Schur route, the native
     host library, the hub split), each emitting its line, those not in
-    ``only`` skipped (None: all).  ``cli``: phase 7's (line, captured
-    matrices), None when it was skipped.  Returns the ELL launches of
-    the hub solve (None when skipped)."""
+    ``only`` skipped (None: all).  Returns the ELL launches of the hub
+    solve (None when skipped)."""
     def want(name):
         return only is None or name in only
 
     if want("schur_lapack"):
-        emit(run_schur_lapack(torch, spmm, em, cli))
+        emit(run_schur_lapack(torch, spmm, em))
         torch.cuda.empty_cache()
     if want("schur_native"):
         emit(run_schur_native(torch, em, gen))
@@ -3810,9 +3856,7 @@ def main():
                            only)
     halo = run_mesh_phases(torch, rt, spmm, em, smi, gen, only,
                            None if earlier is None else earlier["solve_f64"])
-    hub_launches = run_host_phases(
-        torch, rt, spmm, em, gen, only,
-        None if earlier is None else earlier["cli_schur"])
+    hub_launches = run_host_phases(torch, rt, spmm, em, gen, only)
     run_compiled_phases(torch, rt, spmm, em, wm, refine_mod, gen, only,
                         EAGER)
     schur_launches = run_slice_phases(torch, rt, em, wm, only, EAGER)

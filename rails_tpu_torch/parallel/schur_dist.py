@@ -99,10 +99,12 @@ class DistributedSchurOperator(LinearOperator):
     already_placed = True
 
     def __init__(self, a22_op, a21_idx, a21_val, a12t_idx, a12t_val,
-                 lu, piv, n1: int, mesh: Mesh, *, is_hurwitz=False):
+                 lu, piv, n1: int, mesh: Mesh, *, is_symmetric=False,
+                 is_hurwitz=False):
         self.a22 = a22_op
         self.n1 = n1
         self.mesh = mesh
+        self.is_symmetric = is_symmetric
         self.is_hurwitz = is_hurwitz
         self.a21 = _cut_rows(a21_idx, a21_val, n1, mesh)
         self.a12t = _cut_rows(a12t_idx, a12t_val, n1, mesh)
@@ -183,7 +185,8 @@ def distribute_schur(red, mesh: Mesh, *, fmt: str = "auto",
     the plain A22.  The A11 factorization must be the dense LU
     (``a11_solver='dense_lu'``, the default), and the dynamic row count
     n2 must divide by the mesh size (``pad_system`` first if it does
-    not)."""
+    not).  The operator keeps the reduction's symmetry tag, which every
+    process decides alike from the same A."""
     from rails_tpu_torch.parallel.sharded import shard_operator
     from rails_tpu_torch.sparse.formats import (
         ell_arrays_from_scipy, sparse_from_scipy)
@@ -213,4 +216,5 @@ def distribute_schur(red, mesh: Mesh, *, fmt: str = "auto",
     lu, piv = red._a11_lu
     return DistributedSchurOperator(
         a22_op, *ell(red._a21_scipy), *ell(red._a12_scipy.T.tocsr()),
-        lu.to(dtype), piv, red.n1, mesh, is_hurwitz=red.hurwitz)
+        lu.to(dtype), piv, red.n1, mesh, is_symmetric=red.symmetric,
+        is_hurwitz=red.hurwitz)

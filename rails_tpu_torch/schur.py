@@ -26,7 +26,11 @@ and the solver runs on (S, MS, BS).  Here:
   Jacobi-preconditioned BiCGStab whose matvec is the A11 sparse operator
   (format by ``'auto'``); or any callable (MATLAB's opts.Ainv contract).
   Inside each apply of S it runs in a ``Schur/a11_solve`` span
-  (``timer.span``).
+  (``timer.span``);
+- S is tagged symmetric (``red.symmetric``, then the solver's projected
+  solve takes its eigh route) when A is symmetric and the A11 solve is
+  direct (``dense_lu``, ``native_lu``); the JAX package leaves S
+  untagged.
 
 Post-solution analysis (the full-space solution operator for eigenvalue
 extraction, and its trace, C++ SchurOperator::Apply(hasSolution)/Trace,
@@ -117,6 +121,18 @@ def _bicgstab(matvec, b: torch.Tensor, *, tol: float, maxiter: int,
     return x
 
 
+def _is_symmetric(a: sp.csr_matrix) -> bool:
+    """|A - A'| <= 8 eps(float64) max|A| entrywise, in O(nnz) on the
+    host.  A is symmetric exactly when its blocks on the singular /
+    dynamic split are (A11 and A22 symmetric, A12 = A21'), as the split
+    is a symmetric permutation.  The tolerance admits an assembly that
+    rounds the two halves of a pair of entries apart by a few ulps, and
+    nothing an asymmetric model could hold: its asymmetry is far above
+    rounding."""
+    tol = 8 * np.finfo(np.float64).eps * abs(a).max()
+    return bool(abs(a - a.T).max() <= tol)
+
+
 _HOST_STEPS = {"native_lu": "the A11 solve of native_lu",
                "iterative": "the A11 BiCGStab (its stopping test reads "
                             "the device)"}
@@ -169,6 +185,18 @@ class SchurReduction:
         self.A22 = sparse_from_scipy(a22, **kw)
 
         self._setup_a11(a11_solver)
+        # the tag ``operator`` gives S.  S is tagged symmetric (the
+        # projected solve's eigh route) only with a direct A11 solve:
+        # exact to rounding, so any asymmetry of V'SV is rounding.  An
+        # iterative or callable A11 solve is accurate only to its own
+        # tolerance, and symmetrising V'SV would change the answer at
+        # that level.  With n1 = 0, S is A22 itself, with A22's own tag.
+        if self.n1 == 0:
+            self.symmetric = self.A22.is_symmetric
+        else:
+            self.symmetric = (
+                self.a11_solver_kind in ("dense_lu", "native_lu")
+                and _is_symmetric(a))
 
         self.ms_diag = as_tensor(mdiag[self.idx2], self.device, self.dtype)
 
@@ -220,9 +248,13 @@ class SchurReduction:
             lu, piv = torch.linalg.lu_factor(self._dense(self._a11_scipy))
             self._a11_lu = (lu, piv)
 
+            # no recursion for a 1-D x: a closure that calls itself is a
+            # reference cycle, and would keep the factor alive after its
+            # reduction until the collector runs
             def lu_apply(x, adjoint):
                 if x.ndim == 1:
-                    return lu_apply(x[:, None], adjoint)[:, 0]
+                    return torch.linalg.lu_solve(
+                        lu, piv, x[:, None], adjoint=adjoint)[:, 0]
                 return torch.linalg.lu_solve(lu, piv, x, adjoint=adjoint)
 
             self.a11_solve = lambda x: lu_apply(x, False)
@@ -332,6 +364,7 @@ class SchurReduction:
             return z - self.A12.rmatmat(y)
 
         op = CallableOperator(apply, (self.n2, self.n2), rfn=apply_t,
+                              is_symmetric=self.symmetric,
                               is_hurwitz=self.hurwitz)
         # what a recorded iteration (solve(compiled=True) on the card)
         # runs as a host step inside each apply of S (``host_call``): the

@@ -66,6 +66,8 @@ class TestCli:
         assert cli.main([str(dae_dir / "port"), "--device", "cpu",
                          "--x64"]) == 0
         out_t = capsys.readouterr().out
+        # the random DAE's A is not symmetric: S untagged, the Schur route
+        assert "Projected solver: schur (S not symmetric)" in out_t
         assert jax_cli.main([str(dae_dir / "jax"), "--platform", "cpu",
                              "--x64"]) == 0
         out_j = capsys.readouterr().out

@@ -17,6 +17,9 @@ The solve is held draw for draw through the ``draws`` hook, as in
 tests/test_torch_parity.py, with that file's tolerances.
 """
 
+import gc
+import weakref
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +30,8 @@ import rails_tpu
 from rails_tpu.schur import schur_reduce as jax_schur
 import rails_tpu_torch
 from rails_tpu_torch.models.problems import laplacian2_sparse
+from rails_tpu_torch.parallel.mesh import make_mesh
+from rails_tpu_torch.parallel.schur_dist import distribute_schur
 from rails_tpu_torch.schur import schur_reduce
 from rails_tpu_torch.sparse.formats import SparseOperator
 
@@ -139,6 +144,23 @@ def test_sinv_matches_jax(rng):
            1e-10)
 
 
+def test_a11_factor_dies_with_its_reduction():
+    """With the cyclic collector off, the dense A11 factor is freed when
+    its reduction is, after S applies and a 1-D A11 solve: no reference
+    cycle holds it."""
+    a, md, b = laplacian_dae(8)
+    gc.disable()
+    try:
+        red = schur_reduce(a, md, b, dtype=torch.float64, device="cpu")
+        red.operator.matmat(torch.ones(red.n2, 2, dtype=torch.float64))
+        red.a11_solve(torch.ones(red.n1, dtype=torch.float64))
+        lu = weakref.ref(red._a11_lu[0])
+        del red
+        assert lu() is None
+    finally:
+        gc.enable()
+
+
 def test_b_in_singular_part_is_restricted(rng):
     a, md, b = small_dae(rng)
     b = b + 0.5  # nonzero in the singular rows
@@ -157,23 +179,29 @@ def test_nonsingular_m_returns_a22(rng):
     op = red.operator
     assert isinstance(op, SparseOperator) and op.is_hurwitz
     assert op.fwd is red.A22.fwd
+    assert red.symmetric is op.is_symmetric is False
     v = np.linalg.qr(rng.uniform(-1, 1, (red.n, 3)))[0]
     t = np.diag([3.0, 2.0, 1.0])
     assert float(red.trace(v, t)) == pytest.approx(6.0)
 
 
-def test_callable_and_unported_solvers(rng):
-    a, md, b = small_dae(rng)
+def _a11_callable(a, md):
+    """The A11 solve as a callable (MATLAB's opts.Ainv contract), both
+    directions by ``torch.linalg.solve`` on the dense A11."""
     i1 = np.flatnonzero(md == 0)
-    a11 = a[i1][:, i1].toarray()
+    a11 = torch.from_numpy(a[i1][:, i1].toarray())
 
     def solve(x):
-        return torch.linalg.solve(torch.from_numpy(a11), x)
+        return torch.linalg.solve(a11, x)
 
-    solve.transpose_solve = lambda x: torch.linalg.solve(
-        torch.from_numpy(a11.T), x)
+    solve.transpose_solve = lambda x: torch.linalg.solve(a11.T, x)
+    return solve
+
+
+def test_callable_and_unported_solvers(rng):
+    a, md, b = small_dae(rng)
     red_c = schur_reduce(a, md, b, dtype=torch.float64, device="cpu",
-                         a11_solver=solve)
+                         a11_solver=_a11_callable(a, md))
     red_d = schur_reduce(a, md, b, dtype=torch.float64, device="cpu")
     x = torch.from_numpy(rng.uniform(-1, 1, (red_d.n2, 2)))
     _close(red_c.operator.rmatmat(x), red_d.operator.rmatmat(x).numpy(),
@@ -190,20 +218,90 @@ def test_callable_and_unported_solvers(rng):
            red_d.sinv()(x).numpy(), 1e-12)
 
 
+def _nudged_laplacian():
+    """lap_16 with one off-diagonal entry of A moved by 1e-10 max|A|:
+    far above rounding, so A is no longer symmetric."""
+    a, md, b = laplacian_dae(16)
+    a = a.tolil()
+    a[0, 1] += 1e-10 * abs(a).max()
+    return a.tocsr(), md, b
+
+
+@pytest.mark.parametrize("solver,problem,tagged", [
+    ("dense_lu", "lap_16", True), ("native_lu", "lap_16", True),
+    ("dense_lu", "small_dae", False), ("native_lu", "small_dae", False),
+    ("iterative", "lap_16", False), ("callable", "lap_16", False),
+    ("dense_lu", "nudged", False)])
+def test_symmetry_tag(rng, solver, problem, tagged):
+    """S is tagged symmetric when A is and the A11 solve is direct; the
+    solver then takes the projected solve's eigh route, and the Schur
+    route otherwise.  The distributed operator keeps the tag."""
+    a, md, b = (_nudged_laplacian() if problem == "nudged"
+                else _problem(problem, rng))
+    kw = dict(a11_solver=_a11_callable(a, md) if solver == "callable"
+              else solver)
+    red = schur_reduce(a, md, b, dtype=torch.float64, device="cpu", **kw)
+    assert red.symmetric is tagged
+    assert red.operator.is_symmetric is tagged
+    lyap_solver = rails_tpu_torch.LyapunovSolver(
+        red.operator, red.bs, red.ms, device="cpu")
+    assert lyap_solver._resolve_lyap_method()[0] == (
+        "eigh" if tagged else "schur")
+    if solver == "dense_lu":
+        dist = distribute_schur(red, make_mesh(devices=["cpu"]))
+        assert dist.is_symmetric is tagged
+
+
+@pytest.mark.parametrize("solver", ["dense_lu", "iterative"])
+def test_symmetry_tag_without_singular_part(solver):
+    """With n1 = 0, S is A22 = A, with A22's own tag whatever the A11
+    solver: the reduction's tag and the operator's agree."""
+    a = laplacian2_sparse(8)
+    md = np.random.default_rng(0).uniform(0.5, 1.5, 64)
+    red = schur_reduce(a, md, np.ones((64, 2)), dtype=torch.float64,
+                       device="cpu", a11_solver=solver)
+    assert red.n1 == 0
+    assert red.symmetric is red.operator.is_symmetric is True
+
+
+def test_eigh_route_solves_the_same_equation(rng):
+    """On the tagged Laplacian DAE the default options (the eigh route)
+    and ``projected_solver="schur"`` on the same reduction both converge
+    to the same X = V T V'."""
+    a, md, b = laplacian_dae(16)
+    red = schur_reduce(a, md, b[:, :4], dtype=torch.float64, device="cpu")
+    assert red.operator.is_symmetric
+    opts = dict(tol=1e-4, expand=4, restart_size=60, reduced_size=30,
+                maxit=200, dtype=torch.float64, device="cpu")
+    xs = []
+    for route in ("auto", "schur"):
+        v, t, info = rails_tpu_torch.solve(
+            red.operator, red.bs, red.ms, projected_solver=route, **opts)
+        assert info.converged
+        xs.append((v @ t @ v.T).numpy())
+    _close(xs[0], xs[1], 1e-8)
+
+
 @pytest.mark.parametrize("problem,opts", [
     ("dae_120", dict(tol=1e-4, expand=2, maxit=100)),
     ("lap_16", dict(tol=1e-4, expand=4, restart_size=60, reduced_size=30,
                     maxit=200)),
 ])
 def test_schur_solve_parity(rng, jax_sign_fixed, problem, opts):
-    """The reference's main-program path, draw for draw: S untagged (the
-    projected solve's schur route), M22 diagonal, Bs restricted."""
+    """The reference's main-program path, draw for draw: M22 diagonal, Bs
+    restricted.  The random DAE's S is untagged (the projected solve's
+    schur route); the Laplacian DAE's S is tagged symmetric by the port
+    and untagged by the JAX package, which is asked for the eigh route
+    the port takes."""
     a, md, b = _problem(problem, rng)
+    jax_opts = dict(opts)
     if problem != "dae_120":
         b = b[:, :4]
+        jax_opts["projected_solver"] = "eigh"
     red_j, red_t = _both(a, md, b)
+    assert red_t.operator.is_symmetric is (problem != "dae_120")
     vj, tj, ij = rails_tpu.solve(red_j.operator, jnp.asarray(red_j.bs),
-                                 red_j.ms, dtype=jnp.float64, **opts)
+                                 red_j.ms, dtype=jnp.float64, **jax_opts)
     draws = JaxDraws(4634)
     vt, tt, it = rails_tpu_torch.solve(
         red_t.operator, red_t.bs, red_t.ms, dtype=torch.float64,

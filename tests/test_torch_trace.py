@@ -218,6 +218,34 @@ def test_cli_spans_nest_under_driver_main(tmp_path):
             "DenseLyap/host_schur"} <= names
 
 
+def test_cli_symmetric_dae_takes_eigh(tmp_path):
+    """A CLI run on a Laplacian DAE (symmetric A, dense-LU A11) tags S
+    symmetric: it prints the eigh route and its trace has no
+    ``DenseLyap/host_schur`` span."""
+    from rails_tpu_torch import cli
+    from rails_tpu_torch import io as rio
+    from rails_tpu_torch.models.problems import laplacian2_sparse
+
+    side = 16
+    rng = np.random.default_rng(0)
+    md = rng.uniform(0.5, 1.5, side * side)
+    md[rng.permutation(side * side)[: side * side // 3]] = 0.0
+    b = rng.uniform(0, 1, (side * side, 4))
+    b[md == 0] = 0.0
+    rio.write_matrix_market(str(tmp_path / "A.mtx"), laplacian2_sparse(side))
+    rio.write_matrix_market(str(tmp_path / "M.mtx"), sp.diags(md).tocsr())
+    rio.write_matrix_market(str(tmp_path / "B.mtx"), sp.csr_matrix(b))
+    out = io.StringIO()
+    with profile(activities=[ProfilerActivity.CPU]) as prof, \
+            contextlib.redirect_stdout(out):
+        assert cli.main([str(tmp_path), "--device", "cpu", "--x64"]) == 0
+    assert "Projected solver: eigh (S symmetric)" in out.getvalue()
+    assert "Solver converged" in out.getvalue()
+    names = {s[2] for s in program_spans(prof)}
+    assert "Solver/project_solve" in names
+    assert "DenseLyap/host_schur" not in names
+
+
 # ---------------------------------------------------------------- on the card
 @pytest.fixture
 def cuda_device():
