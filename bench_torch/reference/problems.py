@@ -1,31 +1,39 @@
 """Problem builders of the benchmark's configurations, plain scipy.
 
-``laplacian2`` is RAILS's ``laplacian2`` (matlab/test/test_Laplace.m) on a
-side x side grid, built as the JAX bench's solve and scale phases build
-it: kron(I, tridiag(1, -4, 1)) + kron(offdiag(1, 1), I).  ``schur_blocks``
-is the index split of the reference's SchurOperator (src/SchurOperator.cpp:
-73-153): the rows where diag(M) is zero against the rest.
+``operator`` builds A from the configuration's ``family``: the file
+``families/<family>.py``, whose ``operator(config)`` returns A as a
+float64 ``scipy.sparse.csr_matrix`` built from the configuration's own
+keys (``side`` and any key of the family's), with plain numpy and scipy
+and nothing drawn at random.  A new operator is one such file and a
+configuration that names it.  ``schur_blocks`` is the index split of the
+reference's SchurOperator (src/SchurOperator.cpp:73-153): the rows where
+diag(M) is zero against the rest.
 """
 
 from __future__ import annotations
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import scipy.sparse as sp
 
-
-def laplacian2(side: int) -> sp.csr_matrix:
-    return (sp.kron(sp.eye(side),
-                    sp.diags([1.0, -4.0, 1.0], [-1, 0, 1], (side, side)))
-            + sp.kron(sp.diags([1.0, 1.0], [-1, 1], (side, side)),
-                      sp.eye(side))).tocsr()
-
-
-FAMILIES = {"laplacian2": laplacian2}
+FAMILIES_DIR = Path(__file__).resolve().parent / "families"
 
 
 def operator(config) -> sp.csr_matrix:
-    """A of ``config`` (its ``family`` and ``side``) in float64."""
-    return FAMILIES[config["family"]](int(config["side"]))
+    """A of ``config`` in float64, by its ``family``'s file."""
+    family = config["family"]
+    present = sorted(p.stem for p in FAMILIES_DIR.glob("*.py"))
+    if family not in present:
+        raise SystemExit(f"no operator family {family!r} in {FAMILIES_DIR} "
+                         f"(it has {present})")
+    spec = importlib.util.spec_from_file_location(
+        f"bench_torch.reference.families.{family.replace('.', '_')}",
+        FAMILIES_DIR / f"{family}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.operator(config)
 
 
 def schur_blocks(a: sp.csr_matrix, md: np.ndarray):

@@ -18,16 +18,25 @@ the reference's check) without the look for a card, on a cell of
   tolerance loosened under the timed path, ``control.early_stop``).  The cells run on one chip, so there is no exchange
   between chips to leave out.
 
+A non-symmetric operator joins by a family file alone: the CLI cell on
+a convection-diffusion stencil written into a directory of the test's
+own, with no file of the benchmark edited, runs correct, and its
+control and early stop do not, so the checks hold where A is not A'
+(the residual's A V', the transposed A11 solve, A12' in the full-space
+operator) and the projected solve takes the Schur route.
+
 The control's readings at the cells' own sizes come from
 ``control.py`` on the card (PERF.md).
 """
 
+import contextlib
 import time
 
 import pytest
 import torch
 
 from bench_torch import control, harness
+from bench_torch.reference import problems
 
 SIDES = {"laplace2d.f64_n65k": 16, "dae_index1.cli_n9k": 12}
 SEED = 2 ** 35 + 11
@@ -122,3 +131,69 @@ def test_half_the_batch_left_out(workload, solver_cls, monkeypatch):
 def test_early_stop_reported_converged(workload):
     with control.early_stop():
         assert over(run(workload)) == ["true_res"]
+
+
+# the 5-point Laplacian with off-diagonals 1 + p and 1 - p along x: -A is
+# an irreducibly diagonally dominant M-matrix, so A11 is non-singular and
+# S stable, and A is not symmetric for p > 0
+CONVECTION_FAMILY = """
+import scipy.sparse as sp
+
+
+def operator(config):
+    side, p = int(config["side"]), float(config["convection"])
+    return (sp.kron(sp.eye(side),
+                    sp.diags([1.0 + p, -4.0, 1.0 - p], [-1, 0, 1],
+                             (side, side)))
+            + sp.kron(sp.diags([1.0, 1.0], [-1, 1], (side, side)),
+                      sp.eye(side))).tocsr()
+"""
+
+
+@pytest.fixture
+def convection(tmp_path, monkeypatch):
+    """The CLI cell on a non-symmetric family found in ``tmp_path``; runs
+    it (``kind``: sound, control or early stop) and returns its result
+    and the tags S got."""
+    from rails_tpu_torch.schur import SchurReduction
+
+    (tmp_path / "convection2.py").write_text(CONVECTION_FAMILY)
+    monkeypatch.setattr(problems, "FAMILIES_DIR", tmp_path)
+    tags = []
+    init = SchurReduction.__init__
+
+    def tagged(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        tags.append(self.symmetric)
+
+    monkeypatch.setattr(SchurReduction, "__init__", tagged)
+
+    def go(kind="sound"):
+        cell = harness.load_cell("dae_index1.cli_n9k", SEED, device="cpu")
+        cell.config.update(family="convection2", convection=0.25,
+                           side=SIDES[cell.name])
+        a = problems.operator(cell.config)
+        assert abs(a - a.T).max() == pytest.approx(0.5)
+        if kind == "control":
+            cell.dtype = cell.traffic["control_dtype"]
+        fault = control.early_stop() if kind == "early_stop" \
+            else contextlib.nullcontext()
+        with fault:
+            out = harness.run_cell(cell, 1.0, False, time.perf_counter())[0]
+        return out, tags
+
+    return go
+
+
+def test_non_symmetric_family_by_a_file_alone(convection):
+    out, tags = convection()
+    assert out["correct"], out["check"]
+    assert out["attempted"] >= 1 and out["failed"] == 0
+    assert tags and not any(tags)   # S untagged: the Schur route
+
+
+@pytest.mark.parametrize("kind, caught", [("control", "galerkin"),
+                                          ("early_stop", "true_res")])
+def test_non_symmetric_family_control_and_early_stop(convection, kind,
+                                                     caught):
+    assert caught in over(convection(kind)[0])

@@ -5,6 +5,10 @@ trace's interval arithmetic and the probe's accounting, at tiny sizes.
     python3 -m pytest bench_torch/test_selfcheck.py -q
 """
 
+import hashlib
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import scipy.linalg as sla
@@ -19,16 +23,48 @@ LAPLACE = {"family": "laplacian2", "side": 6, "base_seed": 0,
            "m_diag": {"low": 0.5, "high": 1.5},
            "rhs": {"columns": 3, "low": 0.0, "high": 1.0}}
 DAE = dict(LAPLACE, m_diag={"low": 0.5, "high": 1.5, "zero_one_in": 3})
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def test_laplacian2_is_the_five_point_stencil():
     side = 5
-    a = problems.laplacian2(side).toarray()
+    a = problems.operator({"family": "laplacian2", "side": side}).toarray()
     t = np.diag(-4.0 * np.ones(side)) + np.diag(np.ones(side - 1), 1) \
         + np.diag(np.ones(side - 1), -1)
     s = np.diag(np.ones(side - 1), 1) + np.diag(np.ones(side - 1), -1)
     np.testing.assert_array_equal(
         a, np.kron(np.eye(side), t) + np.kron(s, np.eye(side)))
+
+
+# sha256 of A's CSR arrays for each configuration of BENCHMARK.json at its
+# own side, taken when A was built in reference/problems.py itself: a
+# family's file builds the same A bit for bit
+CSR_DIGESTS = {
+    "laplace2d": {
+        "indptr": "9f3e9e4b0c3d060ee99b3c08ee35dd3ef6ac44d40a05fcde28710dc2f83742d8",
+        "indices": "d43ca3af48b3e38243d937e79378f5797f260aa8d927408eff94a9c1078f2e98",
+        "data": "c2c9f1e06e97bbf2cc01213cbff6d94971ea233f1ca5e55dbe8d502fff95b2d4"},
+    "dae_index1": {
+        "indptr": "710eb39d8106993c3b3b1988836b8736d74b903b897a94d9f1d91b01499d4da2",
+        "indices": "3c665adec529d644035044d8ba452331bef4ec624846928ad29e528e9fbbb897",
+        "data": "566e80e0fd217681ccafd6e63e63cbff19b5788e1efa6be97e22db4604d9a4ca"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(CSR_DIGESTS))
+def test_operator_of_each_configuration_is_unchanged(name):
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    conf = {c["name"]: c for c in bench["configs"]}[name]
+    a = problems.operator(json.loads((ROOT / conf["file"]).read_text()))
+    assert a.format == "csr" and a.dtype == np.float64
+    got = {k: hashlib.sha256(getattr(a, k).tobytes()).hexdigest()
+           for k in CSR_DIGESTS[name]}
+    assert got == CSR_DIGESTS[name]
+
+
+def test_unknown_family_exits_naming_the_families_present():
+    with pytest.raises(SystemExit, match="laplacian2"):
+        problems.operator({"family": "no_such_family", "side": 4})
 
 
 def test_generator_fresh_equation_per_request_same_sequence_per_seed():
