@@ -25,11 +25,13 @@ SPD or symmetric E, E^{-1} otherwise) after a symmetric diagonal
 balancing, followed by residual-tracked refinement on the generalized
 residual.
 
-Span (``timer.span``): ``DenseLyap/host_schur`` around the host's LAPACK
+Spans (``timer.span``): ``DenseLyap/host_schur`` around the host's LAPACK
 work: each zgees (the "lapack" and "host" routes' factor, its copy from
 the device included) and each solve of the "host" route (trsyl and its
 round trip).  The "lapack" route's back-substitution and ``lyap``'s
-refinement arithmetic lie outside it.
+refinement arithmetic lie outside it.  Each holds one child that names
+the work: ``DenseLyap/host_schur/zgees`` around a factor,
+``DenseLyap/host_schur/trsyl`` around a solve's round trip.
 """
 
 from __future__ import annotations
@@ -254,7 +256,8 @@ def _schur_factor(a, max_sweeps: Optional[int] = None,
     if route == "qr":
         t, u = complex_schur(a.to(cdtype), max_sweeps=max_sweeps)
     else:
-        with span("DenseLyap", "host_schur"):
+        with span("DenseLyap", "host_schur"), \
+                span("DenseLyap", "host_schur", "zgees"):
             t, u = schur_factors(a.to(cdtype), route)
     eye = torch.eye(k, dtype=cdtype, device=a.device)
     col_ids = torch.arange(k, device=a.device)
@@ -278,14 +281,16 @@ def _schur_factor(a, max_sweeps: Optional[int] = None,
 def _host_schur_factor(a, cdtype):
     """The "host" route: T Y + Y T^H = G by LAPACK's trsyl, X = Re(U Y
     U^H), all on the host; each solve moves C there and X back."""
-    with span("DenseLyap", "host_schur"):
+    with span("DenseLyap", "host_schur"), \
+            span("DenseLyap", "host_schur", "zgees"):
         t, u = _lapack_schur(a.to(cdtype))
     trsyl = scipy.linalg.get_lapack_funcs("trsyl", (t,))
     uh = u.conj().T
     rdtype = t.real.dtype
 
     def solve(c):
-        with span("DenseLyap", "host_schur"):
+        with span("DenseLyap", "host_schur"), \
+                span("DenseLyap", "host_schur", "trsyl"):
             c = c.detach().cpu().numpy().astype(t.dtype)
             with single_thread_blas():
                 y, scale, _ = trsyl(t, t, -(uh @ c @ u), trana="N",

@@ -2,8 +2,9 @@
 profiler's clock that cost nothing while no profiler collects.
 
 CPU: ``span`` makes no ``record_function`` without a profiler; under
-``torch.profiler`` the solver's, the projected solve's, the Schur
-apply's and the CLI's spans nest as the calls do; ``timer`` keeps its
+``torch.profiler`` the solver's, the projected solve's (its host zgees
+and trsyl named by child spans), the Schur apply's and the CLI's spans
+nest as the calls do, on a symmetric and a non-symmetric DAE; ``timer`` keeps its
 table and its synchronisation rules under the profiler.
 
 Tests marked ``cuda`` run on the card: a replayed solve under the
@@ -51,6 +52,16 @@ def inside(child, parents) -> bool:
 
 def named(spans, name):
     return [s for s in spans if s[2] == name]
+
+
+def holders(children, parents):
+    """For each child span, the index of the one parent that holds it."""
+    out = []
+    for c in children:
+        held = [i for i, p in enumerate(parents) if inside(c, [p])]
+        assert len(held) == 1, c
+        out.append(held[0])
+    return out
 
 
 def small_solve(compiled=False):
@@ -119,12 +130,15 @@ def test_host_schur_once_per_projected_solve():
     host = named(spans, "DenseLyap/host_schur")
     assert len(host) == len(proj) > 0
     assert all(inside(h, proj) for h in host)
+    assert holders(named(spans, "DenseLyap/host_schur/zgees"), host) \
+        == list(range(len(host)))
 
 
 def test_host_schur_spans_on_the_host_route():
     """The "host" route (the card's): one ``DenseLyap/host_schur`` for
     its zgees and one for each trsyl solve, the refinement's included,
-    none inside another."""
+    none inside another; each holds one child that names its work,
+    ``DenseLyap/host_schur/zgees`` or ``DenseLyap/host_schur/trsyl``."""
     rng = np.random.default_rng(5)
     k = 12
     a = torch.as_tensor(rng.uniform(-1, 1, (k, k)) - 3 * np.eye(k))
@@ -132,9 +146,14 @@ def test_host_schur_spans_on_the_host_route():
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         x = lyap(a, c, method="schur", refine=1, _schur_route="host")
     assert torch.linalg.norm(a @ x + x @ a.T + c) < 1e-10
-    host = named(program_spans(prof), "DenseLyap/host_schur")
+    spans = program_spans(prof)
+    host = named(spans, "DenseLyap/host_schur")
     assert len(host) == 3
     assert all(p[1] <= q[0] for p, q in zip(host, host[1:]))
+    zgees = named(spans, "DenseLyap/host_schur/zgees")
+    trsyl = named(spans, "DenseLyap/host_schur/trsyl")
+    assert len(zgees) == 1 and len(trsyl) == 2
+    assert holders(zgees + trsyl, host) == [0, 1, 2]
 
 
 def test_a11_solve_span_inside_schur_apply():
@@ -244,6 +263,48 @@ def test_cli_symmetric_dae_takes_eigh(tmp_path):
     names = {s[2] for s in program_spans(prof)}
     assert "Solver/project_solve" in names
     assert "DenseLyap/host_schur" not in names
+
+
+def test_cli_non_symmetric_dae_opens_the_child_spans(tmp_path, monkeypatch):
+    """A CLI run on the convection-diffusion DAE (the benchmark's
+    ``fdm2d`` family) on the card's Schur route, "host": S untagged, one
+    ``DenseLyap/host_schur/zgees`` per projected solve and a
+    ``DenseLyap/host_schur/trsyl`` for each of its solves, each inside a
+    ``DenseLyap/host_schur`` of its own."""
+    from bench_torch.reference import problems
+    from rails_tpu_torch import cli
+    from rails_tpu_torch import io as rio
+    from rails_tpu_torch.linalg import dense_lyap
+
+    route = dense_lyap.schur_route
+    monkeypatch.setattr(dense_lyap, "schur_route", lambda a, r=None: route(
+        a, r or dense_lyap.CARD_SCHUR_ROUTE))
+    side = 16
+    a = problems.operator({"family": "fdm2d", "side": side,
+                           "convection": {"x": 1.0, "y": 10.0},
+                           "reaction": 0.0})
+    rng = np.random.default_rng(0)
+    md = rng.uniform(0.5, 1.5, side * side)
+    md[rng.permutation(side * side)[: side * side // 3]] = 0.0
+    b = rng.uniform(0, 1, (side * side, 4))
+    b[md == 0] = 0.0
+    rio.write_matrix_market(str(tmp_path / "A.mtx"), a)
+    rio.write_matrix_market(str(tmp_path / "M.mtx"), sp.diags(md).tocsr())
+    rio.write_matrix_market(str(tmp_path / "B.mtx"), sp.csr_matrix(b))
+    out = io.StringIO()
+    with profile(activities=[ProfilerActivity.CPU]) as prof, \
+            contextlib.redirect_stdout(out):
+        assert cli.main([str(tmp_path), "--device", "cpu", "--x64"]) == 0
+    assert "Projected solver: schur (S not symmetric)" in out.getvalue()
+    assert "Solver converged" in out.getvalue()
+    spans = program_spans(prof)
+    host = named(spans, "DenseLyap/host_schur")
+    zgees = named(spans, "DenseLyap/host_schur/zgees")
+    trsyl = named(spans, "DenseLyap/host_schur/trsyl")
+    assert len(zgees) == len(named(spans, "Solver/project_solve")) > 0
+    assert len(trsyl) >= len(zgees)
+    assert len(host) == len(zgees) + len(trsyl)
+    assert sorted(holders(zgees + trsyl, host)) == list(range(len(host)))
 
 
 # ---------------------------------------------------------------- on the card
