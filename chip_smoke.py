@@ -143,7 +143,8 @@ exits nonzero and never prints the last line):
               the factor by LAPACK's zgees in a k x k
               round trip to the host against the port's QR sweeps (and
               their count), the back-substitution on the card against
-              LAPACK's trsyl on the host, each route's X within 1e-8 of
+              the "host" route (the real Schur form by dgees and the real
+              trsyl on the host), each route's X within 1e-8 of
               the card route's; the fastest route at the largest k beside
               the card's rule; cli_schur's iterations (396 on the QR
               route), wall, project_solve share, true residual and
@@ -3394,8 +3395,8 @@ def schur_route_case(torch, label, k, a, c):
     """The routes of the projected Schur solve on one captured (A_t, C_t)
     on the card: the factor by zgees in a round trip to the host against
     the QR sweeps (with their count), and the back-substitution on the
-    card against LAPACK's trsyl on the host; each route's X against the
-    card's route."""
+    card; the "host" route's real factor (dgees) and its real trsyl on
+    the host; each route's X against the card's route."""
     from rails_tpu_torch.linalg import dense_lyap
 
     factor = dense_lyap._schur_factor
@@ -3421,12 +3422,12 @@ def schur_route_case(torch, label, k, a, c):
            "host_factor_ms": wall_ms(
                torch, lambda: factor(a, route="host"), 10),
            "backsub_card_ms": wall_ms(torch, lambda: fac["lapack"](c), 5),
-           "ztrsyl_host_ms": wall_ms(torch, lambda: fac["host"](c), 10),
+           "host_trsyl_ms": wall_ms(torch, lambda: fac["host"](c), 10),
            "x_rel_diff": {r: ((x - x_ref).norm() / x_ref.norm()).item()
                           for r, x in xs.items()}}
     row["route_ms"] = {
         "lapack": row["zgees_round_trip_ms"] + row["backsub_card_ms"],
-        "host": row["host_factor_ms"] + row["ztrsyl_host_ms"],
+        "host": row["host_factor_ms"] + row["host_trsyl_ms"],
         "qr": row["qr_sweeps_ms"] + row["backsub_card_ms"]}
     if max(row["x_rel_diff"].values()) > 1e-8:
         raise AssertionError(f"the Schur routes disagree: {row}")

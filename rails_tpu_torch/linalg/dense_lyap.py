@@ -10,11 +10,13 @@ which is the role SLICOT's ``sb03md`` (standard) and ``sg03ad``
 
 - ``eigh``: symmetric A.  ``A = Q diag(w) Q'`` then
   ``X = -Q ((Q'CQ) / (w_i + w_j)) Q'``.
-- ``schur``: general A.  Complex Schur decomposition, then Bartels-Stewart
-  back-substitution on the triangular factor.  PyTorch has no Schur, so
-  the factor comes from LAPACK's zgees through scipy on the host (the
-  JAX package's CPU route), or from the port's own Hessenberg +
-  shifted-QR iteration (``schur_qr.py``) where asked for (``SCHUR_ROUTES``).
+- ``schur``: general A.  Schur decomposition, then Bartels-Stewart
+  back-substitution on the (quasi-)triangular factor.  PyTorch has no
+  Schur, so the factor comes from LAPACK through scipy on the host: the
+  complex form (zgees) on the CPU, as the JAX package's CPU route takes
+  it; on the card the real form (dgees) and the real trsyl, as SLICOT's
+  ``sb03md`` solves; or from the port's own Hessenberg + shifted-QR
+  iteration (``schur_qr.py``) where asked for (``SCHUR_ROUTES``).
 - ``sign``: Newton iteration for the matrix sign function, Hurwitz A.
 - ``kron``: O(k^6) Kronecker linear solve; robust oracle and small-k
   fallback.
@@ -26,12 +28,14 @@ balancing, followed by residual-tracked refinement on the generalized
 residual.
 
 Spans (``timer.span``): ``DenseLyap/host_schur`` around the host's LAPACK
-work: each zgees (the "lapack" and "host" routes' factor, its copy from
-the device included) and each solve of the "host" route (trsyl and its
-round trip).  The "lapack" route's back-substitution and ``lyap``'s
-refinement arithmetic lie outside it.  Each holds one child that names
-the work: ``DenseLyap/host_schur/zgees`` around a factor,
-``DenseLyap/host_schur/trsyl`` around a solve's round trip.
+work: each Schur factor (the "lapack" route's zgees, the "host" route's
+real dgees, sgees at float32; its copy from the device included) and
+each solve of the "host" route (the real trsyl and its round trip).  The
+"lapack" route's back-substitution and ``lyap``'s refinement arithmetic
+lie outside it.  Each holds one child that names the work:
+``DenseLyap/host_schur/zgees`` around a factor, the real one included
+(the name the benchmark reads), ``DenseLyap/host_schur/trsyl`` around a
+solve's round trip.
 """
 
 from __future__ import annotations
@@ -188,8 +192,9 @@ def _eigh_factor(a, calls=EAGER_CALLS):
 #   back-substitution there.  The route of a CPU tensor, as the JAX
 #   package takes zgees on the CPU (rails_tpu/linalg/dense_lyap.py:
 #   165-171).
-# - "host": zgees and the whole Bartels-Stewart step (ztrsyl on T, T^H)
-#   on the host: one k x k round trip per factor and one per solve.
+# - "host": the real Schur form (dgees) and the whole Bartels-Stewart
+#   step (the real trsyl on T, T') on the host, as SLICOT's sb03md
+#   solves: one k x k round trip per factor and one per solve.
 # - "qr": the port's own shifted-QR sweeps (``complex_schur``) and the
 #   back-substitution on a's device; each sweep reads the active size
 #   back to the host.
@@ -199,7 +204,7 @@ SCHUR_ROUTES = ("lapack", "host", "qr")
 # the matrix is 144 or 184 square, k of it active), factor + one solve on
 # an H100 80GB HBM3 at 700.00 W with its 8-core host:
 #   k active      48     96    160    167
-#   "host"      15.1   27.2   51.3   60.3 ms
+#   "host"       5.8   10.8   17.9   24.0 ms
 #   "lapack"    24.8   38.2   67.1   71.1 ms (back-substitution 20-36)
 #   "qr"         208    323    603    535 ms (111-346 QR sweeps)
 CARD_SCHUR_ROUTE = "host"
@@ -215,13 +220,15 @@ def schur_route(a: torch.Tensor, route: Optional[str] = None) -> str:
     return route
 
 
-def _lapack_schur(a: torch.Tensor):
-    """zgees (cgees at single precision) of a complex tensor on the host:
-    numpy (t, u) with a = u t u^H, on one BLAS thread.  scipy factors a
-    copy: a CPU tensor's memory is the array's."""
+def _lapack_schur(a: torch.Tensor, output: str = "complex"):
+    """LAPACK's Schur form of a tensor on the host, on one BLAS thread:
+    numpy (t, u) with a = u t u^H.  ``output`` "complex": zgees (cgees at
+    single precision); "real", of a real tensor: dgees (sgees), t
+    quasi-triangular.  scipy factors a copy: a CPU tensor's memory is
+    the array's."""
     a = a.detach().cpu().numpy()
     with single_thread_blas():
-        return scipy.linalg.schur(a, output="complex", check_finite=False)
+        return scipy.linalg.schur(a, output=output, check_finite=False)
 
 
 def schur_factors(a: torch.Tensor, route: Optional[str] = None,
@@ -246,13 +253,14 @@ def _schur_factor(a, max_sweeps: Optional[int] = None,
         (T + conj(T[j,j]) I) y_j = g_j - sum_{i>j} conj(T[j,i]) y_i.
 
     ``route``: ``SCHUR_ROUTES``; None picks by a's device
-    (``schur_route``).
+    (``schur_route``).  The "host" route solves in the real Schur form
+    instead (``_host_schur_factor``).
     """
-    k = a.shape[0]
-    cdtype = complex_dtype_for(a.dtype)
     route = schur_route(a, route)
     if route == "host":
-        return _host_schur_factor(a, cdtype)
+        return _host_schur_factor(a)
+    k = a.shape[0]
+    cdtype = complex_dtype_for(a.dtype)
     if route == "qr":
         t, u = complex_schur(a.to(cdtype), max_sweeps=max_sweeps)
     else:
@@ -278,24 +286,25 @@ def _schur_factor(a, max_sweeps: Optional[int] = None,
     return solve
 
 
-def _host_schur_factor(a, cdtype):
-    """The "host" route: T Y + Y T^H = G by LAPACK's trsyl, X = Re(U Y
-    U^H), all on the host; each solve moves C there and X back."""
+def _host_schur_factor(a):
+    """The "host" route: the real Schur form A = U T U' (T quasi-upper
+    triangular, a 2 x 2 block for each complex-conjugate pair) by dgees
+    (sgees at float32), then T Y + Y T' = G by the real trsyl and X =
+    U Y U', all on the host in a's own real dtype; each solve moves C
+    there and X back."""
     with span("DenseLyap", "host_schur"), \
             span("DenseLyap", "host_schur", "zgees"):
-        t, u = _lapack_schur(a.to(cdtype))
+        t, u = _lapack_schur(a, "real")
     trsyl = scipy.linalg.get_lapack_funcs("trsyl", (t,))
-    uh = u.conj().T
-    rdtype = t.real.dtype
 
     def solve(c):
         with span("DenseLyap", "host_schur"), \
                 span("DenseLyap", "host_schur", "trsyl"):
             c = c.detach().cpu().numpy().astype(t.dtype)
             with single_thread_blas():
-                y, scale, _ = trsyl(t, t, -(uh @ c @ u), trana="N",
-                                    tranb="C")
-                x = (u @ (y / scale) @ uh).real.astype(rdtype)
+                y, scale, _ = trsyl(t, t, -(u.T @ c @ u), trana="N",
+                                    tranb="T")
+                x = u @ (y / scale) @ u.T
             return _sym(torch.from_numpy(x).to(a.device))
 
     return solve

@@ -3,8 +3,8 @@
 The numpy and scipy wheels each bundle their own OpenBLAS (in
 ``numpy.libs`` and ``scipy.libs`` beside the packages).  The port calls
 small LAPACK and BLAS routines on the host between stretches of device
-work - the projected Schur solve's zgees and trsyl at k of a few hundred
-- where OpenBLAS's threads cost more than they give: on the 8-core host
+work - the projected Schur solve's Schur factor and trsyl at k of a few
+hundred - where OpenBLAS's threads cost more than they give: on the 8-core host
 of an H100 80GB HBM3 (700.00 W), ``chip_smoke.py``'s cli_schur spent
 200 ms per projected solve on the "host" route with the default threads
 (88.6 s in all) and 49 ms with one (31.0 s).

@@ -7,14 +7,21 @@ two solutions must agree to 1e-10 relative in the Frobenius norm.  On the
 CPU both packages take LAPACK's complex Schur (zgees) for the schur
 method, then the same back-substitution: held to 1e-12 relative up to
 k = 160, the projected size of the CLI's Schur path.  The port's other
-routes (``_schur_route``): "host" (zgees and LAPACK's trsyl for the
-whole Bartels-Stewart step, on the host; the card's route) to 1e-11, and
-"qr" (the port's own shifted-QR Schur, ``complex_schur``) to 1e-10.
+routes (``_schur_route``): "host" (the real Schur form by dgees and the
+real trsyl for the whole Bartels-Stewart step, on the host; the card's
+route) to 1e-11, and "qr" (the port's own shifted-QR Schur,
+``complex_schur``) to 1e-10.  The "host" route is also held on complex
+pairs (2 x 2 blocks in its quasi-triangular factor), in the solver's
+padded layout and with every kind of E, against the Kronecker oracle up
+to k = 20 and the JAX package above, and at float32 to the bound the
+complex route it replaced reached; each time in real arithmetic of the
+input's precision in its LAPACK calls (a spy on their dtypes).
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.linalg
 import torch
 
 from rails_tpu.eigs import eigs_general as jax_eigs_general
@@ -119,6 +126,102 @@ def test_other_routes_match_jax(rng, route, tol, k):
     through the private route argument, on the CPU."""
     _, _, xj, xt = _jax_and_port(rng, k, route)
     assert np.linalg.norm(xt - xj) <= tol * np.linalg.norm(xj)
+
+
+class LapackSpy:
+    """Records what the "host" route hands LAPACK: the dtype and output
+    form of each Schur factor, the quasi-triangular factors it got back,
+    and the type prefix of each trsyl it asked for ('d', 's'; 'z' or
+    'c' would be complex arithmetic)."""
+
+    def __init__(self, monkeypatch):
+        self.schur, self.t, self.trsyl = [], [], []
+        schur, funcs = scipy.linalg.schur, scipy.linalg.get_lapack_funcs
+
+        def spy_schur(a, *args, **kw):
+            self.schur.append((a.dtype, kw.get("output")))
+            t, u = schur(a, *args, **kw)
+            self.t.append(t)
+            return t, u
+
+        def spy_funcs(names, arrays=(), *args, **kw):
+            fn = funcs(names, arrays, *args, **kw)
+            if names == "trsyl":
+                self.trsyl.append(fn.typecode)
+            return fn
+
+        monkeypatch.setattr(scipy.linalg, "schur", spy_schur)
+        monkeypatch.setattr(scipy.linalg, "get_lapack_funcs", spy_funcs)
+
+
+def _padded(a, c, e, kb):
+    """The solver's projected layout (``core/solver.py::_projected_t``):
+    the active k x k block inside a kb x kb buffer whose inactive
+    diagonal is ``a_pad``, beyond the active spectral radius; C zero and
+    E the identity there."""
+    k = a.shape[0]
+    a_pad = -(np.max(np.sum(np.abs(a), axis=1)) + 1.0)
+    ap = a_pad * np.eye(kb)
+    ap[:k, :k] = a
+    cp = np.zeros((kb, kb))
+    cp[:k, :k] = c
+    ep = None
+    if e is not None:
+        ep = np.eye(kb)
+        ep[:k, :k] = e
+    return ap, cp, ep
+
+
+@pytest.mark.parametrize("e_kind", [None, "spd", "general"])
+@pytest.mark.parametrize("k,kb", [(13, None), (20, None), (96, None),
+                                  (160, None), (80, 184)])
+def test_host_route_real_schur(rng, monkeypatch, e_kind, k, kb):
+    """The card's route on CPU tensors: real matrices with complex
+    pairs, so that its real Schur factor has 2 x 2 blocks, square or in
+    the solver's padded layout (k = 80 active in 184), with no E, an SPD
+    E and a general E (``refine_generalized``'s repeated solves).  Held
+    to 1e-11 relative against the Kronecker oracle up to k = 20 and the
+    JAX package above, as the route is held in
+    ``test_other_routes_match_jax``."""
+    a, c, e = stable_problem(rng, k, "schur", e_kind)
+    if kb is not None:
+        a, c, e = _padded(a, c, e, kb)
+    kw = {} if e_kind is None else {"e_kind": e_kind}
+    t = torch.from_numpy
+    e_t = None if e is None else t(e)
+    if k <= 20:
+        x_ref = lyap(t(a), t(c), e_t, method="kron", **kw).numpy()
+    else:
+        x_ref = np.asarray(jax_lyap(jnp.asarray(a), jnp.asarray(c),
+                                    None if e is None else jnp.asarray(e),
+                                    method="schur", **kw))
+    spy = LapackSpy(monkeypatch)
+    x = lyap(t(a), t(c), e_t, method="schur", _schur_route="host",
+             **kw).numpy()
+    assert np.linalg.norm(x - x_ref) <= 1e-11 * np.linalg.norm(x_ref)
+    assert spy.schur == [(np.float64, "real")]
+    assert np.any(np.diag(spy.t[0], -1) != 0)   # 2 x 2 blocks
+    assert spy.trsyl == ["d"]
+
+
+@pytest.mark.parametrize("k", [13, 96, 160])
+def test_host_route_float32(rng, monkeypatch, k):
+    """At float32 (the f32 control's path) the "host" route in real
+    single precision (sgees, strsyl) against the float64 solution of the
+    same problem.  Before the route took the real Schur form, its
+    complex one (cgees, ctrsyl) reached 2.8e-7, 3.6e-7 and 3.8e-7
+    relative at k = 13, 96 and 160 here; 4e-7 is that bound."""
+    a, c, _ = stable_problem(rng, k, "schur", None)
+    t = torch.from_numpy
+    x64 = lyap(t(a), t(c), method="schur").numpy()
+    spy = LapackSpy(monkeypatch)
+    x = lyap(t(a).float(), t(c).float(), method="schur",
+             _schur_route="host")
+    assert x.dtype == torch.float32
+    assert spy.schur == [(np.float32, "real")]
+    assert spy.trsyl == ["s"]
+    x = x.double().numpy()
+    assert np.linalg.norm(x - x64) <= 4e-7 * np.linalg.norm(x64)
 
 
 def test_route_rule_and_unknown_route():
