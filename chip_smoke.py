@@ -137,18 +137,15 @@ exits nonzero and never prints the last line):
               symmetric, so it takes eigh, and (b) again with
               projected_solver "schur" drives the Schur route on the mesh
               (``schur_route_run``), held to the same checks.
-18. schur_lapack - the projected Schur solve's routes on the projected
-              matrices of cli_schur run with projected_solver "schur"
-              (phase 7 takes eigh) at k = 48, 96, 160 and the largest k:
-              the factor by LAPACK's zgees in a k x k
-              round trip to the host against the port's QR sweeps (and
-              their count), the back-substitution on the card against
-              the "host" route (the real Schur form by dgees and the real
-              trsyl on the host), each route's X within 1e-8 of
-              the card route's; the fastest route at the largest k beside
-              the card's rule; cli_schur's iterations (396 on the QR
-              route), wall, project_solve share, true residual and
-              eigenvalue (phase 7 run here when it was skipped).
+18. schur_lapack - the projected Schur solve on the projected matrices
+              of cli_schur run with projected_solver "schur" (phase 7
+              takes eigh) at k = 48, 96, 160 and the largest k: the real
+              Schur factor (dgees) and the real trsyl on the host, each
+              timed with its k x k round trip, X within 1e-8 of scipy's
+              solve_continuous_lyapunov of the same matrices in f64 on
+              the host; cli_schur's iterations, wall, project_solve
+              share, true residual and eigenvalue (phase 7 run here
+              when it was skipped).
 19. schur_native - on cli_schur's DAE, schur_reduce with
               a11_solver="native_lu" (the C++ sparse LU, A11 solved on the
               host in each apply) against "dense_lu": S and S' applies
@@ -718,7 +715,6 @@ def run_cli_schur(torch, spmm, em, tol, side=CLI_SIDE, extra=(),
     "Lyapunov Solver" sublist.  Raises unless the CLI prints the
     projected solver asked for there, and otherwise eigh (A is
     symmetric and the A11 solve dense LU, so S is tagged symmetric)."""
-    from rails_tpu_torch.linalg import dense_lyap
     import scipy.sparse as sp
 
     from rails_tpu_torch import cli
@@ -806,9 +802,7 @@ def run_cli_schur(torch, spmm, em, tol, side=CLI_SIDE, extra=(),
                    r"symmetric)\)", text)
     route = (solver or {}).get("projected_solver", "eigh")
     out.update({"projected_solver": mt and mt.group(1),
-                "s_symmetric": mt and mt.group(2) == "symmetric",
-                "schur_route": dense_lyap.CARD_SCHUR_ROUTE
-                if route == "schur" else None})
+                "s_symmetric": mt and mt.group(2) == "symmetric"})
     if out["projected_solver"] != route or not out["s_symmetric"]:
         raise AssertionError(f"{label}: the CLI did not print the "
                              f"projected solver {route} with S symmetric: "
@@ -1885,7 +1879,7 @@ def run_mesh_phases(torch, rt, spmm, em, smi, gen, only, solve_f64):
         # 28 (b) and 29 (c), take eigh)
         route = run_cli_schur(torch, spmm, em, 1e-4, side=MESH_CLI_SIDE,
                               extra=("--distributed",),
-                              label="mesh_schur_route",
+                              label="mesh_schur_projected_schur",
                               solver={"projected_solver": "schur"})
         for run in (out, route):
             if run["distributed_operator"] != "DistributedSchurOperator":
@@ -1894,11 +1888,9 @@ def run_mesh_phases(torch, rt, spmm, em, smi, gen, only, solve_f64):
                     f"{run['distributed_operator']}")
         out.update({"distribute_schur": apply_row,
                     "schur_route_run": {k: route[k] for k in (
-                        "projected_solver", "schur_route", "iters",
-                        "wall_s", "s_per_iter", "project_solve_share",
+                        "projected_solver", "iters", "wall_s",
+                        "s_per_iter", "project_solve_share",
                         "res_true_f64", "lambda1_rel_diff")},
-                    "qr_route_iters": 127,
-                    "qr_route_project_solve_share": 0.955,
                     "phase_wall_s": time.perf_counter() - t0})
         emit(out)
         EAGER["mesh_schur"] = out
@@ -2382,7 +2374,7 @@ def run_slice_phases(torch, rt, em, wm, only, eager):
         cases = []
         for label, side, sinv, route in (
                 ("native_lu", CLI_SIDE, None, "auto"),
-                ("native_lu_schur_route", CLI_SIDE, None, "schur"),
+                ("native_lu_projected_schur", CLI_SIDE, None, "schur"),
                 ("inv_a_native_lu", MESH_CLI_SIDE, "native_lu", "auto")):
             with full_capacity():
                 full = run_schur_solve(torch, rt, em, f"{label}_eager_full",
@@ -3392,73 +3384,48 @@ def wall_ms(torch, fn, reps):
 
 
 def schur_route_case(torch, label, k, a, c):
-    """The routes of the projected Schur solve on one captured (A_t, C_t)
-    on the card: the factor by zgees in a round trip to the host against
-    the QR sweeps (with their count), and the back-substitution on the
-    card; the "host" route's real factor (dgees) and its real trsyl on
-    the host; each route's X against the card's route."""
+    """The projected Schur solve on one captured (A_t, C_t) on the card:
+    its real factor (dgees) and its real trsyl on the host, each timed
+    with its round trip, and its X against scipy's
+    ``solve_continuous_lyapunov`` of the same (A, C) in f64 on the
+    host."""
+    import scipy.linalg
     from rails_tpu_torch.linalg import dense_lyap
 
     factor = dense_lyap._schur_factor
-    fac = {r: factor(a, route=r) for r in dense_lyap.SCHUR_ROUTES}
-    xs = {r: f(c) for r, f in fac.items()}
-    x_ref = xs[dense_lyap.CARD_SCHUR_ROUTE]
-    qr, calls = torch.linalg.qr, [0]
-
-    def counted_qr(*args, **kw):
-        calls[0] += 1
-        return qr(*args, **kw)
-
-    torch.linalg.qr = counted_qr
-    try:
-        factor(a, route="qr")
-    finally:
-        torch.linalg.qr = qr
+    solve = factor(a)
+    x = solve(c).double().cpu().numpy()
+    x_ref = scipy.linalg.solve_continuous_lyapunov(
+        a.double().cpu().numpy(), -c.double().cpu().numpy())
     row = {"case": label, "k_active": k, "k_full": a.shape[0],
-           "qr_sweeps": calls[0],
-           "zgees_round_trip_ms": wall_ms(
-               torch, lambda: factor(a, route="lapack"), 10),
-           "qr_sweeps_ms": wall_ms(torch, lambda: factor(a, route="qr"), 3),
-           "host_factor_ms": wall_ms(
-               torch, lambda: factor(a, route="host"), 10),
-           "backsub_card_ms": wall_ms(torch, lambda: fac["lapack"](c), 5),
-           "host_trsyl_ms": wall_ms(torch, lambda: fac["host"](c), 10),
-           "x_rel_diff": {r: ((x - x_ref).norm() / x_ref.norm()).item()
-                          for r, x in xs.items()}}
-    row["route_ms"] = {
-        "lapack": row["zgees_round_trip_ms"] + row["backsub_card_ms"],
-        "host": row["host_factor_ms"] + row["host_trsyl_ms"],
-        "qr": row["qr_sweeps_ms"] + row["backsub_card_ms"]}
-    if max(row["x_rel_diff"].values()) > 1e-8:
-        raise AssertionError(f"the Schur routes disagree: {row}")
+           "host_factor_ms": wall_ms(torch, lambda: factor(a), 10),
+           "host_trsyl_ms": wall_ms(torch, lambda: solve(c), 10),
+           "x_rel_diff": float(np.linalg.norm(x - x_ref)
+                               / np.linalg.norm(x_ref))}
+    row["route_ms"] = row["host_factor_ms"] + row["host_trsyl_ms"]
+    if row["x_rel_diff"] > 1e-8:
+        raise AssertionError(f"the projected Schur solve disagrees with "
+                             f"scipy's: {row}")
     return row
 
 
 def run_schur_lapack(torch, spmm, em):
-    """Phase 18: the projected Schur solve's routes timed on the
-    projected matrices of cli_schur with the Schur route asked for (S is
-    tagged symmetric, so phase 7's run takes eigh), and that run itself
-    on the card's route."""
-    from rails_tpu_torch.linalg import dense_lyap
-
+    """Phase 18: the projected Schur solve timed on the projected
+    matrices of cli_schur with the Schur route asked for (S is tagged
+    symmetric, so phase 7's run takes eigh), and that run itself."""
     t0 = time.perf_counter()
     captured = {}
-    out_cli = run_cli_schur(torch, spmm, em, 1e-4, label="cli_schur_route",
+    out_cli = run_cli_schur(torch, spmm, em, 1e-4,
+                            label="cli_schur_projected_schur",
                             capture=captured,
                             solver={"projected_solver": "schur"})
-    out_cli["qr_route_iters"] = 396
     emit(out_cli)
     rows = [schur_route_case(torch, f"k >= {key}" if key != "max"
                              else "largest k", *captured[key])
             for key in (*SCHUR_KS, "max") if key in captured]
-    at_max = rows[-1]["route_ms"]
-    fastest = min(at_max, key=at_max.get)
     return {"phase": "schur_lapack", "cases": rows,
-            "card_route": dense_lyap.CARD_SCHUR_ROUTE,
-            "fastest_route_at_largest_k": fastest,
-            "rule_agrees": fastest == dense_lyap.CARD_SCHUR_ROUTE,
             "cli_schur": {key: out_cli[key] for key in (
-                "iters", "qr_route_iters", "converged", "wall_s", "s_per_iter",
+                "iters", "converged", "wall_s", "s_per_iter",
                 "project_solve_share", "res_true_f64", "tol",
                 "lambda1_rel_diff", "max_memory_allocated",
                 "ell_spmm_launches")},

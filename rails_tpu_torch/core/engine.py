@@ -17,7 +17,7 @@ On the card an iteration is recorded once as a *program* and replayed:
   the next segment reads.  ``torch.linalg.eigh`` is one: it checks
   LAPACK's ``info`` on the host, and cuSOLVER's syevd and syevj do not
   capture either (``rails_tpu_torch/capture_audit.py``).  The projected Schur
-  route on the card (the real Schur form and trsyl on the host) is
+  solve (the real Schur form and trsyl on the host) is
   another, and so is any call that code outside the solver routes through ``host_call``: a
   Schur operator's host A11 solve (``native_lu``, the BiCGStab of
   ``iterative``), the expansion's ``inv_a``;

@@ -209,17 +209,17 @@ def eigs(op: LinearOperator, num: int = 6, *, tol: float = 1e-8,
     return evals, evecs
 
 
-def _small_eig(h: torch.Tensor, route=None):
-    """Eigenpairs of a small dense complex matrix via Schur (the route of
-    ``linalg/dense_lyap.schur_factors``: LAPACK's zgees on the host, as
-    the JAX package takes it on the CPU, or ``route="qr"``) + protected
-    back-substitution on the triangular factor (the LAPACK ztrevc
-    scheme).  For the eigenvalue at Schur position i, solve
+def _small_eig(h: torch.Tensor):
+    """Eigenpairs of a small dense complex matrix via Schur
+    (``linalg/dense_lyap.schur_factors``: LAPACK's zgees on the host, as
+    the JAX package takes it on the CPU) + protected back-substitution
+    on the triangular factor (the LAPACK ztrevc scheme).  For the
+    eigenvalue at Schur position i, solve
     (T[:i,:i] - lam_i) y[:i] = -T[:i, i] with y[i] = 1, y[i+1:] = 0;
     near-singular pivots are pushed off zero along their phase, first at
     an eps floor, then at sqrt(eps), then the Schur vector itself (a
     cluster of c coincident values grows y like (scale/floor)^c)."""
-    t, u = schur_factors(h, route)
+    t, u = schur_factors(h)
     lam = torch.diagonal(t)
     k = h.shape[0]
     rdt = lam.real.dtype

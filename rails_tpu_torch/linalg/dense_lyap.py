@@ -10,13 +10,11 @@ which is the role SLICOT's ``sb03md`` (standard) and ``sg03ad``
 
 - ``eigh``: symmetric A.  ``A = Q diag(w) Q'`` then
   ``X = -Q ((Q'CQ) / (w_i + w_j)) Q'``.
-- ``schur``: general A.  Schur decomposition, then Bartels-Stewart
-  back-substitution on the (quasi-)triangular factor.  PyTorch has no
-  Schur, so the factor comes from LAPACK through scipy on the host: the
-  complex form (zgees) on the CPU, as the JAX package's CPU route takes
-  it; on the card the real form (dgees) and the real trsyl, as SLICOT's
-  ``sb03md`` solves; or from the port's own Hessenberg + shifted-QR
-  iteration (``schur_qr.py``) where asked for (``SCHUR_ROUTES``).
+- ``schur``: general A.  The real Schur form (dgees) and the real
+  trsyl for the whole Bartels-Stewart step, on the host, as SLICOT's
+  ``sb03md`` solves: PyTorch has no Schur, so the factor comes from
+  LAPACK through scipy, on every device.  The JAX package takes the
+  complex form (zgees) on the CPU and its own QR sweeps on the TPU.
 - ``sign``: Newton iteration for the matrix sign function, Hurwitz A.
 - ``kron``: O(k^6) Kronecker linear solve; robust oracle and small-k
   fallback.
@@ -28,12 +26,10 @@ balancing, followed by residual-tracked refinement on the generalized
 residual.
 
 Spans (``timer.span``): ``DenseLyap/host_schur`` around the host's LAPACK
-work: each Schur factor (the "lapack" route's zgees, the "host" route's
-real dgees, sgees at float32; its copy from the device included) and
-each solve of the "host" route (the real trsyl and its round trip).  The
-"lapack" route's back-substitution and ``lyap``'s refinement arithmetic
-lie outside it.  Each holds one child that names the work:
-``DenseLyap/host_schur/zgees`` around a factor, the real one included
+work: each Schur factor (dgees, sgees at float32; its copy from the
+device included) and each solve (the real trsyl and its round trip);
+``lyap``'s refinement arithmetic lies outside it.  Each holds one child
+that names the work: ``DenseLyap/host_schur/zgees`` around a factor
 (the name the benchmark reads), ``DenseLyap/host_schur/trsyl`` around a
 solve's round trip.
 """
@@ -46,9 +42,8 @@ from typing import Optional
 import scipy.linalg
 import torch
 
-from rails_tpu_torch.linalg.schur_qr import complex_schur
 from rails_tpu_torch.timer import span
-from rails_tpu_torch.utils.dtypes import complex_dtype_for, highest_precision
+from rails_tpu_torch.utils.dtypes import highest_precision
 from rails_tpu_torch.utils.host_blas import single_thread_blas
 
 __all__ = ["lyap", "lyap_residual", "DenseCalls", "CaptureCalls"]
@@ -186,40 +181,6 @@ def _eigh_factor(a, calls=EAGER_CALLS):
     return solve
 
 
-# The routes of the Schur factor (``lyap``'s private ``_schur_route``):
-# - "lapack": LAPACK's complex Schur (zgees, scipy) on the host, the
-#   factors moved to a's device, then the JAX package's column-by-column
-#   back-substitution there.  The route of a CPU tensor, as the JAX
-#   package takes zgees on the CPU (rails_tpu/linalg/dense_lyap.py:
-#   165-171).
-# - "host": the real Schur form (dgees) and the whole Bartels-Stewart
-#   step (the real trsyl on T, T') on the host, as SLICOT's sb03md
-#   solves: one k x k round trip per factor and one per solve.
-# - "qr": the port's own shifted-QR sweeps (``complex_schur``) and the
-#   back-substitution on a's device; each sweep reads the active size
-#   back to the host.
-SCHUR_ROUTES = ("lapack", "host", "qr")
-# The route of a CUDA tensor: a fixed choice, measured by chip_smoke.py's
-# schur_lapack phase on cli_schur's projected matrices (side 192, f64;
-# the matrix is 144 or 184 square, k of it active), factor + one solve on
-# an H100 80GB HBM3 at 700.00 W with its 8-core host:
-#   k active      48     96    160    167
-#   "host"       5.8   10.8   17.9   24.0 ms
-#   "lapack"    24.8   38.2   67.1   71.1 ms (back-substitution 20-36)
-#   "qr"         208    323    603    535 ms (111-346 QR sweeps)
-CARD_SCHUR_ROUTE = "host"
-
-
-def schur_route(a: torch.Tensor, route: Optional[str] = None) -> str:
-    """The Schur route for ``a``: ``route`` when given, else "lapack" on
-    the CPU and ``CARD_SCHUR_ROUTE`` on the card."""
-    if route is None:
-        route = "lapack" if a.device.type == "cpu" else CARD_SCHUR_ROUTE
-    if route not in SCHUR_ROUTES:
-        raise ValueError(f"unknown Schur route {route!r}")
-    return route
-
-
 def _lapack_schur(a: torch.Tensor, output: str = "complex"):
     """LAPACK's Schur form of a tensor on the host, on one BLAS thread:
     numpy (t, u) with a = u t u^H.  ``output`` "complex": zgees (cgees at
@@ -231,67 +192,20 @@ def _lapack_schur(a: torch.Tensor, output: str = "complex"):
         return scipy.linalg.schur(a, output=output, check_finite=False)
 
 
-def schur_factors(a: torch.Tensor, route: Optional[str] = None,
-                  max_sweeps: Optional[int] = None):
-    """Complex Schur factors (t, u) of a complex tensor, on its device:
-    LAPACK on the host ("lapack", "host") or ``complex_schur`` ("qr")."""
-    if schur_route(a, route) == "qr":
-        return complex_schur(a, max_sweeps=max_sweeps)
+def schur_factors(a: torch.Tensor):
+    """Complex Schur factors (t, u) of a complex tensor: zgees (cgees) on
+    the host, the factors moved to a's device."""
     t, u = _lapack_schur(a)
     return (torch.from_numpy(t).to(a.device),
             torch.from_numpy(u).to(a.device))
 
 
-def _schur_factor(a, max_sweeps: Optional[int] = None,
-                  route: Optional[str] = None):
-    """General A via complex Schur + Bartels-Stewart back-substitution.
-
-    A = U T U^H, so the equation becomes T Y + Y T^H = -U^H C U with
-    Y = U^H X U and X = Re(U Y U^H).  Back-substitution runs from the
-    last column to the first:
-
-        (T + conj(T[j,j]) I) y_j = g_j - sum_{i>j} conj(T[j,i]) y_i.
-
-    ``route``: ``SCHUR_ROUTES``; None picks by a's device
-    (``schur_route``).  The "host" route solves in the real Schur form
-    instead (``_host_schur_factor``).
-    """
-    route = schur_route(a, route)
-    if route == "host":
-        return _host_schur_factor(a)
-    k = a.shape[0]
-    cdtype = complex_dtype_for(a.dtype)
-    if route == "qr":
-        t, u = complex_schur(a.to(cdtype), max_sweeps=max_sweeps)
-    else:
-        with span("DenseLyap", "host_schur"), \
-                span("DenseLyap", "host_schur", "zgees"):
-            t, u = schur_factors(a.to(cdtype), route)
-    eye = torch.eye(k, dtype=cdtype, device=a.device)
-    col_ids = torch.arange(k, device=a.device)
-    zero = torch.zeros((), dtype=cdtype, device=a.device)
-
-    def solve(c):
-        g = -(u.mH @ c.to(cdtype) @ u)
-        y = torch.zeros((k, k), dtype=cdtype, device=a.device)
-        for j in range(k - 1, -1, -1):
-            tj = torch.where(col_ids > j, torch.conj(t[j, :]), zero)
-            rhs = g[:, j] - y @ tj
-            y[:, j] = torch.linalg.solve_triangular(
-                t + torch.conj(t[j, j]) * eye, rhs[:, None],
-                upper=True)[:, 0]
-        x = u @ y @ u.mH
-        return _sym(x.real.to(a.dtype))
-
-    return solve
-
-
-def _host_schur_factor(a):
-    """The "host" route: the real Schur form A = U T U' (T quasi-upper
+def _schur_factor(a):
+    """General A: the real Schur form A = U T U' (T quasi-upper
     triangular, a 2 x 2 block for each complex-conjugate pair) by dgees
     (sgees at float32), then T Y + Y T' = G by the real trsyl and X =
-    U Y U', all on the host in a's own real dtype; each solve moves C
-    there and X back."""
+    U Y U', all on the host in a's own real dtype, as SLICOT's sb03md
+    solves, whatever a's device; each solve moves C there and X back."""
     with span("DenseLyap", "host_schur"), \
             span("DenseLyap", "host_schur", "zgees"):
         t, u = _lapack_schur(a, "real")
@@ -343,7 +257,6 @@ def lyap(a: torch.Tensor, c: torch.Tensor, e: Optional[torch.Tensor] = None,
          e_kind: Optional[str] = None, sign_iterations: int = 30,
          refine: Optional[int] = None,
          refine_generalized: Optional[int] = None,
-         _schur_route: Optional[str] = None,
          calls: DenseCalls = EAGER_CALLS) -> torch.Tensor:
     """Solve A X E' + E X A' + C = 0 for symmetric X.
 
@@ -399,7 +312,7 @@ def lyap(a: torch.Tensor, c: torch.Tensor, e: Optional[torch.Tensor] = None,
     if method == "eigh":
         slv = _eigh_factor(a_red, calls)
     elif method == "schur":
-        slv = _schur_factor(a_red, route=_schur_route)
+        slv = _schur_factor(a_red)
     elif method == "sign":
         slv = functools.partial(_lyap_sign, a_red,
                                 iterations=sign_iterations, calls=calls)

@@ -6,7 +6,7 @@ small LAPACK and BLAS routines on the host between stretches of device
 work - the projected Schur solve's Schur factor and trsyl at k of a few
 hundred - where OpenBLAS's threads cost more than they give: on the 8-core host
 of an H100 80GB HBM3 (700.00 W), ``chip_smoke.py``'s cli_schur spent
-200 ms per projected solve on the "host" route with the default threads
+200 ms per projected solve (zgees and trsyl) with the default threads
 (88.6 s in all) and 49 ms with one (31.0 s).
 ``single_thread_blas`` sets every bundled OpenBLAS it finds to one
 thread and puts the counts back on exit; where it finds none (a numpy

@@ -144,7 +144,8 @@ def test_generalized_dia_laplacian(rng, jax_sign_fixed):
 @pytest.mark.parametrize("with_m", [False, True])
 def test_nonsymmetric_untagged_dia(rng, jax_sign_fixed, with_m):
     """A convection-diffusion stencil with no tags: the schur route (on
-    the CPU both packages take LAPACK's complex Schur, zgees)."""
+    the CPU the JAX package factors by LAPACK's complex Schur, zgees,
+    the port by the real one, dgees, and the real trsyl)."""
     side = 8
     n = side * side
     a = laplacian2_sparse(side) \

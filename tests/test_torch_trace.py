@@ -120,23 +120,28 @@ def test_solve_spans_nest(compiled):
 
 
 def test_host_schur_once_per_projected_solve():
-    """A dense nonsymmetric A takes the Schur route, on the CPU by LAPACK
-    on the host: one ``DenseLyap/host_schur`` inside each
-    ``Solver/project_solve``."""
+    """A dense nonsymmetric A takes the Schur route, by LAPACK on the
+    host: inside each ``Solver/project_solve`` two
+    ``DenseLyap/host_schur``, one holding the factor's
+    ``DenseLyap/host_schur/zgees`` and one the solve's
+    ``DenseLyap/host_schur/trsyl``."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         small_solve()
     spans = program_spans(prof)
     proj = named(spans, "Solver/project_solve")
     host = named(spans, "DenseLyap/host_schur")
-    assert len(host) == len(proj) > 0
-    assert all(inside(h, proj) for h in host)
-    assert holders(named(spans, "DenseLyap/host_schur/zgees"), host) \
-        == list(range(len(host)))
+    zgees = named(spans, "DenseLyap/host_schur/zgees")
+    trsyl = named(spans, "DenseLyap/host_schur/trsyl")
+    assert len(host) == 2 * len(proj) > 0
+    assert holders(host, proj) == sorted(2 * list(range(len(proj))))
+    assert holders(zgees, proj) == holders(trsyl, proj) \
+        == list(range(len(proj)))
+    assert sorted(holders(zgees + trsyl, host)) == list(range(len(host)))
 
 
 def test_host_schur_spans_on_the_host_route():
-    """The "host" route (the card's): one ``DenseLyap/host_schur`` for
-    its zgees and one for each trsyl solve, the refinement's included,
+    """The Schur route: one ``DenseLyap/host_schur`` for its factor and
+    one for each trsyl solve, the refinement's included,
     none inside another; each holds one child that names its work,
     ``DenseLyap/host_schur/zgees`` or ``DenseLyap/host_schur/trsyl``."""
     rng = np.random.default_rng(5)
@@ -144,7 +149,7 @@ def test_host_schur_spans_on_the_host_route():
     a = torch.as_tensor(rng.uniform(-1, 1, (k, k)) - 3 * np.eye(k))
     c = torch.as_tensor(np.eye(k))
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        x = lyap(a, c, method="schur", refine=1, _schur_route="host")
+        x = lyap(a, c, method="schur", refine=1)
     assert torch.linalg.norm(a @ x + x @ a.T + c) < 1e-10
     spans = program_spans(prof)
     host = named(spans, "DenseLyap/host_schur")
@@ -265,20 +270,16 @@ def test_cli_symmetric_dae_takes_eigh(tmp_path):
     assert "DenseLyap/host_schur" not in names
 
 
-def test_cli_non_symmetric_dae_opens_the_child_spans(tmp_path, monkeypatch):
+def test_cli_non_symmetric_dae_opens_the_child_spans(tmp_path):
     """A CLI run on the convection-diffusion DAE (the benchmark's
-    ``fdm2d`` family) on the card's Schur route, "host": S untagged, one
+    ``fdm2d`` family) on the Schur route: S untagged, one
     ``DenseLyap/host_schur/zgees`` per projected solve and a
     ``DenseLyap/host_schur/trsyl`` for each of its solves, each inside a
     ``DenseLyap/host_schur`` of its own."""
     from bench_torch.reference import problems
     from rails_tpu_torch import cli
     from rails_tpu_torch import io as rio
-    from rails_tpu_torch.linalg import dense_lyap
 
-    route = dense_lyap.schur_route
-    monkeypatch.setattr(dense_lyap, "schur_route", lambda a, r=None: route(
-        a, r or dense_lyap.CARD_SCHUR_ROUTE))
     side = 16
     a = problems.operator({"family": "fdm2d", "side": side,
                            "convection": {"x": 1.0, "y": 10.0},
