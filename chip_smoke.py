@@ -139,7 +139,8 @@ exits nonzero and never prints the last line):
               (``schur_route_run``), held to the same checks.
 18. schur_lapack - the projected Schur solve on the projected matrices
               of cli_schur run with projected_solver "schur" (phase 7
-              takes eigh) at k = 48, 96, 160 and the largest k: the real
+              takes eigh) at k = 48, 96, 160 and the largest k, each
+              the active k x k block the eager loop solves: the real
               Schur factor (dgees) and the real trsyl on the host, each
               timed with its k x k round trip, X within 1e-8 of scipy's
               solve_continuous_lyapunov of the same matrices in f64 on
@@ -675,7 +676,8 @@ def capture_projected(store):
     """Record in ``store`` the projected matrices (A_t, C_t) that the
     solver hands to ``lyap`` for the schur route: at the first iteration
     whose active size k reaches each of ``SCHUR_KS`` (keyed by it), and
-    at the largest k reached ("max"), each as (k, a, c)."""
+    at the largest k reached ("max"), each as (k, a, c).  The eager loop
+    solves on the active block, so a and c are k x k."""
     from rails_tpu_torch.core import solver as smod
     from rails_tpu_torch.linalg import dense_lyap
 

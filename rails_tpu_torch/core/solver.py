@@ -7,9 +7,11 @@ masked state:
   the projected matrices VAV/VBV/VMV are (Kb, Kb) buffers that are exactly
   zero outside the active block.  Kb grows on a capacity ladder
   (``_grow_state``) as k approaches it.
-- The projected dense solve pads the inactive diagonal with a shift that
-  dominates the active spectral radius, so the padded equation is always
-  solvable and T == 0 outside the active block.
+- The eager loop solves the projected equation on the active k x k
+  block.  The recorded engine, whose shapes stay fixed, solves it on the
+  whole buffer, its inactive diagonal padded with a shift that dominates
+  the active spectral radius, so the padded equation is always solvable;
+  either way T == 0 outside the active block.
 - One iteration: the incremental Gram update (one apply of A to the
   newest block), the projected dense solve, the residual Lanczos, then a
   restart or an orthonormal append.
@@ -1095,40 +1097,71 @@ class LyapunovSolver:
 
     def _projected_t(self, st, ctx, calls=dense_lyap.EAGER_CALLS,
                      host=None):
-        """The new projected solution T of ``st`` (k a Python int or a
-        0-d tensor).  ``calls``: the dense factorizations
-        (``dense_lyap.DenseCalls``); ``host``: the recording's host step,
-        which the schur route takes on the card."""
+        """The new projected solution T of ``st``.  ``calls``: the dense
+        factorizations (``dense_lyap.DenseCalls``); ``host``: the
+        recording's host step, which the schur route takes on the card.
+
+        With k a Python int (the eager loop) the equation is formed and
+        solved on the active k x k block, inside a ``Solver/active_block``
+        span, and T is that block in a zero Kb x Kb buffer.  With k a 0-d
+        tensor (the recorded engine, whose shapes stay fixed) it is
+        solved on the padded Kb x Kb buffer."""
+        vmv = st.VMV if ctx.has_m and not ctx.mortho else None
+        if isinstance(st.k, int):
+            k = st.k
+            with span("Solver", "active_block"):
+                y = self._dense_t(
+                    st.VAV[:k, :k], st.VBV[:k, :k],
+                    None if vmv is None else vmv[:k, :k], None, ctx,
+                    calls, host)
+                t = y.new_zeros(st.VAV.shape)
+                t[:k, :k] = y
+            return t
+        act = ctx.col_ids < st.k
+        y = self._dense_t(st.VAV, st.VBV, vmv,
+                          torch.diag(1.0 - act.to(self.dtype)), ctx, calls,
+                          host)
+        # enforce exact masking of the inactive block
+        return torch.where(act[:, None] & act[None, :], y,
+                           torch.zeros((), dtype=self.dtype,
+                                       device=self.device))
+
+    def _dense_t(self, vav, vbv, vmv, inactive_diag, ctx, calls, host):
+        """The symmetric solution of the projected equation on ``vav``,
+        ``vbv`` and ``vmv`` (None without M or under M-orthogonality).
+        ``inactive_diag``: the diagonal that marks a padded buffer's
+        inactive block, which is given the identity in ``vmv`` and a
+        shift in ``vav``; None on an active block, which has none."""
         tri = torch.linalg.solve_triangular
-        active = (ctx.col_ids < st.k).to(self.dtype)
-        inactive_diag = torch.diag(1.0 - active)
-        if ctx.has_m and not ctx.mortho:
-            vmv_i = st.VMV + inactive_diag  # identity padding
+        if vmv is not None:
+            vmv_i = vmv if inactive_diag is None \
+                else vmv + inactive_diag  # identity padding
             if ctx.e_spd and ctx.lyap_method == "eigh":
                 l = calls.cholesky(0.5 * (vmv_i + vmv_i.T))
-                at = tri(l, st.VAV, upper=False)
+                at = tri(l, vav, upper=False)
                 at = tri(l, at.T, upper=False).T
-                ct = tri(l, st.VBV, upper=False)
+                ct = tri(l, vbv, upper=False)
                 ct = tri(l, ct.T, upper=False).T
 
                 def back(y):
                     x = tri(l.T, y, upper=True)
                     return tri(l.T, x.T, upper=True).T
             else:
-                at = calls.solve(vmv_i, st.VAV)
-                ct = calls.solve(vmv_i, calls.solve(vmv_i, st.VBV).T).T
+                at = calls.solve(vmv_i, vav)
+                ct = calls.solve(vmv_i, calls.solve(vmv_i, vbv).T).T
 
                 def back(y):
                     return y
         else:
-            at, ct = st.VAV, st.VBV
+            at, ct = vav, vbv
 
             def back(y):
                 return y
-        # dominate the active spectral radius so the padding never
-        # collides with active eigenvalues
-        a_pad = -(torch.max(torch.sum(torch.abs(at), dim=1)) + 1.0)
-        at = at + a_pad * inactive_diag
+        if inactive_diag is not None:
+            # dominate the active spectral radius so the padding never
+            # collides with active eigenvalues
+            a_pad = -(torch.max(torch.sum(torch.abs(at), dim=1)) + 1.0)
+            at = at + a_pad * inactive_diag
         ct = 0.5 * (ct + ct.T)
         if host is not None and ctx.lyap_method == "schur":
             y = host(functools.partial(dense_lyap.lyap, method="schur"),
@@ -1138,11 +1171,6 @@ class LyapunovSolver:
         else:
             y = dense_lyap.lyap(at, ct, method=ctx.lyap_method, calls=calls)
         t_new = back(y)
-        # enforce exact masking of the inactive block
-        act = ctx.col_ids < st.k
-        t_new = torch.where(act[:, None] & act[None, :], t_new,
-                            torch.zeros((), dtype=self.dtype,
-                                        device=self.device))
         return 0.5 * (t_new + t_new.T)
 
     # -------------------- residual Lanczos --------------------

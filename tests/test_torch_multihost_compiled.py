@@ -45,7 +45,7 @@ sys.path.insert(0, HERE)
 from test_torch_multihost import (  # noqa: E402
     CONT_OPTS, N_SOLVE, SCHUR_OPTS, SOLVE_OPTS, ReplayDraws, _digest,
     _free_port, _ranks_agree, continuation_inputs, continuation_jacobian,
-    dae_dir, run_workers, solve_inputs)
+    dae_dir, padded_projected_solve, run_workers, solve_inputs)
 
 THETAS = (0.0, 0.05, 0.1)
 
@@ -53,8 +53,9 @@ THETAS = (0.0, 0.05, 0.1)
 @contextlib.contextmanager
 def full_capacity():
     """The eager solver with its state grown to the full capacity cap_kb
-    before the first iteration, as ``solve(compiled=True)`` holds it:
-    the same iteration at the same shapes."""
+    before the first iteration, and its projected solve on the padded
+    buffer, as ``solve(compiled=True)`` holds them: the same iteration
+    at the same shapes."""
     from rails_tpu_torch.core.solver import LyapunovSolver
 
     init = LyapunovSolver._init_state
@@ -67,7 +68,8 @@ def full_capacity():
 
     LyapunovSolver._init_state = grown
     try:
-        yield
+        with padded_projected_solve():
+            yield
     finally:
         LyapunovSolver._init_state = init
 
@@ -189,7 +191,9 @@ def w_continuation(comm, mesh, d, tag, dev):
                 if j:
                     cont._prev_space = torch.from_numpy(
                         ref[f"space{j - 1}"][r0:r1]).to(dev)
-            v, t, info = cont.step(a, compiled=run != "eager")
+            with (padded_projected_solve() if run == "eager"
+                  else contextlib.nullcontext()):
+                v, t, info = cont.step(a, compiled=run != "eager")
             iters[run].append(info.iter)
             if run == "compiled":
                 sizes.append(len(cont._engine_cache))
@@ -533,7 +537,10 @@ def test_compiled_continuation_on_two_processes(runs, jax_continuation):
     46 and 40 in both packages.
 
     With the solver's own draws and bases: the eager steps' counts on the same
-    ranks, the one-process port's compiled counts on the same 4-shard
+    ranks, their projected solve on the padded buffer as the engine's
+    (``padded_projected_solve``: on the active block the eager loop
+    rounds otherwise, 93 and 40 iterations against 94 and 42), the
+    one-process port's compiled counts on the same 4-shard
     mesh within the across-process bound (15%: the ranks' partial sums
     round otherwise, and the third step takes 42 iterations on 2
     processes, eager and compiled, against 41 in one), and the engine

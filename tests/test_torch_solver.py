@@ -4,6 +4,8 @@ r0sq and M-presence regressions; ``TestNotPortedYet`` held the options
 that raised before they were ported and now checks them against the
 eager path."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -11,6 +13,7 @@ import torch
 
 import rails_tpu_torch as rt
 from rails_tpu_torch.core.solver import LyapunovSolver, _round_up
+from rails_tpu_torch.linalg import dense_lyap
 from rails_tpu_torch.models.problems import tridiagonal_problem
 
 # one intra-op thread: the suite runs in several worker processes at once,
@@ -288,3 +291,119 @@ class TestNotPortedYet:
         a, b = tri(rng)
         v, t, info = rt.solve(sp.csr_matrix(a), b, tol=1e-6, **CPU)
         assert info.converged and true_residual(a, v, t, b) < 1e-4
+
+
+def padded_t(st, ctx):
+    """The projected solve on the whole padded Kb x Kb buffer, as the
+    solver formed it for every k before the eager loop sliced the active
+    block: identity on VMV's inactive diagonal, a shift beyond the active
+    spectral radius on A's, the inactive block of T masked to zero."""
+    tri = torch.linalg.solve_triangular
+    active = (ctx.col_ids < st.k).to(st.VAV.dtype)
+    inactive_diag = torch.diag(1.0 - active)
+    if ctx.has_m and not ctx.mortho:
+        vmv_i = st.VMV + inactive_diag
+        if ctx.e_spd and ctx.lyap_method == "eigh":
+            l = torch.linalg.cholesky(0.5 * (vmv_i + vmv_i.T))
+            at = tri(l, st.VAV, upper=False)
+            at = tri(l, at.T, upper=False).T
+            ct = tri(l, st.VBV, upper=False)
+            ct = tri(l, ct.T, upper=False).T
+
+            def back(y):
+                x = tri(l.T, y, upper=True)
+                return tri(l.T, x.T, upper=True).T
+        else:
+            at = torch.linalg.solve(vmv_i, st.VAV)
+            ct = torch.linalg.solve(
+                vmv_i, torch.linalg.solve(vmv_i, st.VBV).T).T
+
+            def back(y):
+                return y
+    else:
+        at, ct = st.VAV, st.VBV
+
+        def back(y):
+            return y
+    a_pad = -(torch.max(torch.sum(torch.abs(at), dim=1)) + 1.0)
+    at = at + a_pad * inactive_diag
+    ct = 0.5 * (ct + ct.T)
+    t_new = back(dense_lyap.lyap(at, ct, method=ctx.lyap_method))
+    act = ctx.col_ids < st.k
+    t_new = torch.where(act[:, None] & act[None, :], t_new,
+                        torch.zeros((), dtype=t_new.dtype))
+    return 0.5 * (t_new + t_new.T)
+
+
+# (projected solver, M, ortho): the branches of the projected solve
+ACTIVE_BLOCK_CASES = {
+    "schur": ("schur", False, "V"),
+    "eigh": ("eigh", False, "V"),
+    "eigh_m_cholesky": ("eigh", True, "V"),
+    "schur_m_solve": ("schur", True, "V"),
+    "eigh_mortho": ("eigh", True, "M"),
+}
+
+
+def eager_state(case, iters=5):
+    """A solver and its eager state as the projected solve of iteration
+    ``iters`` sees it (the newest block's Gram update done), with k below
+    the buffer's capacity Kb."""
+    method, with_m, ortho = ACTIVE_BLOCK_CASES[case]
+    rng = np.random.default_rng(11)
+    n = 40
+    a, b = tridiagonal_problem(rng, n)
+    a = a - 2.0 * np.eye(n)
+    if method == "eigh":
+        a = 0.5 * (a + a.T)
+    m = rt.DiagonalOperator(rng.uniform(0.5, 1.5, n), **CPU) \
+        if with_m else None
+    solver = LyapunovSolver(a, b, m, tol=1e-12,
+                            projected_solver=method, ortho=ortho, **CPU)
+    with torch.no_grad():
+        st, ctx = solver._init_state(n)
+        for _ in range(iters):
+            solver._iterate(st, ctx)
+        solver._gram_update(st, ctx)
+    assert not st.done and st.n_new > 0 and 0 < st.k < st.VAV.shape[0]
+    assert ctx.lyap_method == method and ctx.has_m == with_m
+    assert ctx.mortho == (ortho == "M")
+    assert ctx.e_spd == with_m
+    return solver, st, ctx
+
+
+class TestActiveBlock:
+    @pytest.mark.parametrize("case", list(ACTIVE_BLOCK_CASES))
+    def test_eager_solves_the_active_block(self, case):
+        """With k a Python int the projected equation is solved on the
+        active k x k block, and agrees with the padded form: T within
+        1e-12 relative, exactly zero outside the block, symmetric."""
+        solver, st, ctx = eager_state(case)
+        k, kb = st.k, st.VAV.shape[0]
+        calls = []
+        orig = dense_lyap.lyap
+
+        def spy(a, c, *args, **kw):
+            calls.append(a.shape)
+            return orig(a, c, *args, **kw)
+
+        dense_lyap.lyap = spy
+        try:
+            t = solver._projected_t(st, ctx)
+        finally:
+            dense_lyap.lyap = orig
+        assert calls == [(k, k)]
+        ref = padded_t(st, ctx)
+        assert t.shape == (kb, kb)
+        assert torch.linalg.norm(t - ref) <= 1e-12 * torch.linalg.norm(ref)
+        assert torch.all(t[k:, :] == 0) and torch.all(t[:, k:] == 0)
+        assert torch.equal(t, t.T)
+
+    @pytest.mark.parametrize("case", list(ACTIVE_BLOCK_CASES))
+    def test_recorded_state_keeps_the_padded_buffer(self, case):
+        """With k a 0-d tensor (the recorded engine's state) the solve
+        stays on the padded buffer, bit for bit."""
+        solver, st, ctx = eager_state(case)
+        rec = dataclasses.replace(st, k=torch.tensor(st.k))
+        t = solver._projected_t(rec, ctx)
+        assert torch.equal(t, padded_t(rec, ctx))

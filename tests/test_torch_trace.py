@@ -119,6 +119,27 @@ def test_solve_spans_nest(compiled):
         assert len(outer) == info.iter and "Engine/read" not in counts
 
 
+@pytest.mark.parametrize("compiled", [False, True])
+def test_active_block_span_per_eager_iteration(compiled):
+    """The eager loop solves the projected equation on the active block:
+    one ``Solver/active_block`` per iteration, each inside that
+    iteration's ``Solver/project_solve`` and holding its host Schur work.
+    The recorded engine keeps the padded buffer and opens none."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, _, info = small_solve(compiled)
+    spans = program_spans(prof)
+    block = named(spans, "Solver/active_block")
+    if compiled:
+        assert block == []
+        return
+    proj = named(spans, "Solver/project_solve")
+    assert len(block) == len(proj) == info.iter > 0
+    assert holders(block, proj) == list(range(len(proj)))
+    host = named(spans, "DenseLyap/host_schur")
+    assert len(host) == 2 * len(block)
+    assert holders(host, block) == sorted(2 * list(range(len(block))))
+
+
 def test_host_schur_once_per_projected_solve():
     """A dense nonsymmetric A takes the Schur route, by LAPACK on the
     host: inside each ``Solver/project_solve`` two
